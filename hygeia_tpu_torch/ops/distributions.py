@@ -1,0 +1,63 @@
+"""Elementary log-densities for the two-group model, on tensors.
+
+Counterpart of hygeia_tpu/ops/distributions.py; the same formulas with
+``torch.lgamma`` in place of ``gammaln``. All functions broadcast.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_NEG_INF = float("-inf")
+
+
+def logit(x):
+    """log(x / (1-x))."""
+    return torch.log(x) - torch.log1p(-x)
+
+
+def inv_logit(x):
+    """Logistic function 1/(1+exp(-x))."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def mu_sigma_to_alpha_beta(mu, sigma):
+    """(mean, sd) of a Beta law -> shape parameters (alpha, beta).
+
+    nu = mu(1-mu)/sigma^2 - 1; alpha = mu*nu; beta = (1-mu)*nu.
+    """
+    nu = mu * (1.0 - mu) / (sigma**2) - 1.0
+    return mu * nu, (1.0 - mu) * nu
+
+
+def beta_binomial_log_pmf(x, n, alpha, beta):
+    """Log-pmf of BetaBinomial(n; alpha, beta) at x; -inf outside 0 <= x <= n."""
+    lg = torch.lgamma
+    lp = (
+        lg(n + 1.0)
+        - lg(x + 1.0)
+        - lg(n - x + 1.0)
+        + lg(x + alpha)
+        + lg(n - x + beta)
+        - lg(n + alpha + beta)
+        + lg(alpha + beta)
+        - lg(alpha)
+        - lg(beta)
+    )
+    valid = (x >= 0) & (x <= n)
+    return torch.where(valid, lp, _NEG_INF)
+
+
+def neg_binomial_log_pmf(x, size, prob):
+    """Log-pmf of NegativeBinomial(size, success prob) at count x >= 0,
+    with the point mass at 0 when prob == 0."""
+    lg = torch.lgamma
+    lp = (
+        lg(x + size)
+        - lg(size)
+        - lg(x + 1.0)
+        + size * torch.log1p(-prob)
+        + x * torch.log(prob)
+    )
+    lp = torch.where(prob == 0.0, torch.where(x == 0.0, 0.0, _NEG_INF), lp)
+    return torch.where(x >= 0, lp, _NEG_INF)

@@ -1,0 +1,263 @@
+"""The ``infer`` verb on one segment: windowing, filter, backward simulation,
+reference-format outputs.
+
+Counterpart of hygeia_tpu/two_group/runner.py (``segment_window``,
+``infer_segment``) on its monolithic path: the whole (T, N) history of a
+chunk of seeds is held on the device, then consumed by the backward pass.
+The seeds of a chunk run together as the leading unit axis U. Output files,
+names and dtypes are the JAX runner's.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from hygeia_tpu_torch.ops.emissions import emission_log_prob_table
+from hygeia_tpu_torch.two_group.backward import backward_simulation, smoothing_functionals
+from hygeia_tpu_torch.two_group.filter import HISTORY_BYTES_PER_PARTICLE_SITE, run_filter
+from hygeia_tpu_torch.two_group.model import make_params
+from hygeia_tpu_torch.utils import io as hio
+
+DEFAULT_MU = (0.95, 0.05, 0.80, 0.20, 0.50, 0.50)
+DEFAULT_SIGMA = (0.05, 0.05, 0.1, 0.1, 0.1, 0.2886751)
+
+# Device bytes per seed besides the history: the (T, B, 5) int32
+# trajectories, plus per-step scratch of the filter (~512 B a particle) and
+# of the backward pass (~160 B a particle and trajectory).
+_TRAJ_BYTES_PER_SITE_SAMPLE = 5 * 4
+_CPU_BUDGET_BYTES = 4 * 2**30
+
+
+def segment_window(n_positions, batch, segment_size, buffer_size):
+    """(slice_range, return_range) for a batch; None if the batch index is
+    out of range."""
+    if batch * segment_size > n_positions:
+        return None
+    lo = max(0, batch * segment_size - buffer_size)
+    hi = min((batch + 1) * segment_size + buffer_size, n_positions)
+    n_slice = hi - lo
+    if batch == 0:
+        ret = range(0, min(n_slice, segment_size))
+    else:
+        ret = range(buffer_size, min(n_slice, buffer_size + segment_size))
+    return range(lo, hi), ret
+
+
+def memory_budget_bytes(device) -> float:
+    """Bytes a chunk of seeds may use: HYGEIA_HBM_BUDGET_GB when set, else
+    90% of the device's free memory (torch.cuda.mem_get_info); on the CPU
+    (the tests) a fixed 4 GiB."""
+    env = os.environ.get("HYGEIA_HBM_BUDGET_GB")
+    if env:
+        return float(env) * 2**30
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        return 0.9 * free
+    return float(_CPU_BUDGET_BYTES)
+
+
+def bytes_per_seed(T, N, B) -> int:
+    history = T * N * HISTORY_BYTES_PER_PARTICLE_SITE
+    traj = T * B * _TRAJ_BYTES_PER_SITE_SAMPLE
+    scratch = N * (512 + 160 * B)
+    return history + traj + scratch
+
+
+def _generator(device, seeds, stream):
+    """A generator for a chunk of seeds: the filter's (stream 0) or the
+    backward pass's (stream 1). A seed run alone always gets the same
+    stream; realisations differ from the JAX package's (threefry keys)."""
+    g = torch.Generator(device=device)
+    ss = np.random.SeedSequence([int(stream), *map(int, seeds)])
+    g.manual_seed(int(ss.generate_state(1, np.uint32)[0]))
+    return g
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _not_ported(flag, item):
+    raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md, item {item})")
+
+
+def infer_segment(
+    *,
+    data_dir,
+    single_group_dir,
+    results_dir,
+    chrom,
+    device,
+    batch=0,
+    seed=0,
+    segment_size=100000,
+    buffer_size=5000,
+    mu=DEFAULT_MU,
+    sigma=DEFAULT_SIGMA,
+    minimum_duration=3,
+    omega_case=0.8,
+    merge_log_prob=np.log(0.1),
+    split_prob=0.01,
+    num_resampled_particles=(50,),
+    num_samples_backward=25,
+    multinomial=False,
+    robust=False,
+    trace_dir=None,
+    marginal=False,
+    streaming_blocks=None,
+):
+    """Run inference for one (chrom, batch, seed or seeds) work unit on
+    ``device`` and write the reference-format outputs under
+    results_dir/chrom_{chrom}_{batch}/. Returns logZ ({N: logZ}, or a dict
+    of those per seed when several seeds are given). Weights are f32.
+
+    multinomial is recorded in the flags files only: as in hygeia_tpu, the
+    INFER filter always takes the optimal resampler (whose fallback is
+    multinomial)."""
+    if robust:
+        _not_ported("--robust", "12 (robust mode)")
+    if marginal:
+        _not_ported("--marginal", "11 (marginal path)")
+    if streaming_blocks:
+        _not_ported("--streaming_blocks", "7 (streamed INFER)")
+    if trace_dir:
+        _not_ported("--trace_dir", "16 (tracing)")
+    device = torch.device(device)
+    mu = np.asarray(mu, np.float64)
+    R = len(mu)
+
+    theta = hio.read_theta(os.path.join(single_group_dir, f"theta_{chrom}.csv.gz"))
+    p_softmax, omega_logit_control = hio.theta_file_to_p_softmax(theta, R)
+
+    positions = hio.read_positions(os.path.join(data_dir, f"positions_{chrom}.txt.gz"))
+    window = segment_window(len(positions), batch, segment_size, buffer_size)
+    if window is None:
+        print("Batch index is too large for the chromosome")
+        return None
+    sl, ret = window
+    sl = slice(sl.start, sl.stop)
+    ret = slice(ret.start, ret.stop)
+
+    def _load(name):
+        return hio.read_count_matrix(os.path.join(data_dir, f"{name}_{chrom}.txt.gz"))[sl]
+
+    n_total_control = _load("n_total_reads_control")
+    n_meth_control = _load("n_methylated_reads_control")
+    n_total_case = _load("n_total_reads_case")
+    n_meth_case = _load("n_methylated_reads_case")
+    positions = positions[sl]
+    if np.any(n_total_case < n_meth_case) or np.any(n_total_control < n_meth_control):
+        raise ValueError("methylated read counts exceed total read counts")
+    T = n_total_control.shape[0]
+
+    path = os.path.join(results_dir, f"chrom_{chrom}_{batch}")
+    os.makedirs(path, exist_ok=True)
+    for name, arr in (
+        ("observations_control", n_meth_control.astype(np.int16)),
+        ("observations_case", n_meth_case.astype(np.int16)),
+        ("n_total_reads_control", n_total_control.astype(np.int16)),
+        ("n_total_reads_case", n_total_case.astype(np.int16)),
+        ("positions", positions),
+    ):
+        hio.write_count_matrix(os.path.join(path, f"{name}.csv.gz"), arr[ret])
+
+    params = make_params(
+        mu=mu,
+        sigma=sigma,
+        p_softmax_control=p_softmax,
+        omega_logit_control=omega_logit_control,
+        omega_case=omega_case,
+        kappa_control=np.full(R, 2.0),
+        kappa_case=np.full(R, 2.0),
+        merge_log_prob=merge_log_prob,
+        split_prob=split_prob,
+        minimum_duration=minimum_duration,
+        d_max=max(64, T + 1),
+        device=device,
+    )
+    E_c = emission_log_prob_table(n_meth_control, n_total_control, params.alpha, params.beta)
+    E_k = emission_log_prob_table(n_meth_case, n_total_case, params.alpha, params.beta)
+
+    seeds = [seed] if np.isscalar(seed) else list(seed)
+    all_log_norm = {s: {} for s in seeds}
+    times = {s: {} for s in seeds}
+    times_backward = {s: {} for s in seeds}
+    budget = memory_budget_bytes(device)
+    B = num_samples_backward
+
+    for M in num_resampled_particles:
+        N = M * (2 * R + R * R)
+        seeds_per_call = max(1, int(budget // bytes_per_seed(T, N, B)))
+
+        outs = {}
+        for c0 in range(0, len(seeds), seeds_per_call):
+            chunk = seeds[c0 : c0 + seeds_per_call]
+            _sync(device)
+            t0 = time.perf_counter()
+            res = run_filter(
+                params, E_c, E_k, M, n_units=len(chunk), generator=_generator(device, chunk, 0)
+            )
+            _sync(device)
+            t1 = time.perf_counter()
+            traj = backward_simulation(
+                params, res.log_weights, res.particles, B,
+                generator=_generator(device, chunk, 1),
+            )
+            split, regime = smoothing_functionals(traj, R)
+            _sync(device)
+            t2 = time.perf_counter()
+            log_z = res.log_normalizing_constant.cpu().numpy()
+            degen = res.degenerate_steps.cpu().numpy()
+            del res  # frees the chunk's (U, T, N) history
+            traj, split, regime = traj.cpu().numpy(), split.cpu().numpy(), regime.cpu().numpy()
+            for i, s in enumerate(chunk):
+                if degen[i]:
+                    # Nonzero means the whole particle set collapsed at some sites.
+                    print(f"WARNING: seed {s}: {int(degen[i])} degenerate filter steps")
+                else:
+                    print(f"seed {s}: degenerate_steps=0")
+                outs[s] = (
+                    float(log_z[i]), traj[i], split[i], regime[i],
+                    (t1 - t0) / len(chunk), (t2 - t1) / len(chunk),
+                )
+        for s in seeds:
+            log_z, traj, split_s, regime_s, t_f, t_b = outs[s]
+            all_log_norm[s][N] = log_z
+            times[s][N] = t_f
+            times_backward[s][N] = t_b
+            for name, arr in (
+                ("merged_state", traj[:, :, 0].astype(np.int16)[ret]),
+                ("control_state", traj[:, :, 1:3].astype(np.int32)[ret]),
+                ("case_state", traj[:, :, 3:5].astype(np.int32)[ret]),
+            ):
+                hio.savez_fast(os.path.join(path, f"optimal_backward_particles_{name}_{N}_{s}"), arr, level=0)
+            hio.savez_fast(os.path.join(path, f"optimal_split_probs_{N}_{s}"), split_s)
+            hio.savez_fast(os.path.join(path, f"optimal_regime_probs_{N}_{s}"), regime_s)
+
+    flags = {
+        "chrom": str(chrom), "batch": batch, "segment_size": segment_size,
+        "buffer_size": buffer_size, "mu": list(map(float, mu)),
+        "sigma": list(map(float, np.asarray(sigma, np.float64))),
+        "minimum_duration": minimum_duration, "omega_case": omega_case,
+        "merge_log_prob": float(merge_log_prob), "split_prob": split_prob,
+        "num_resampled_particles": list(num_resampled_particles),
+        "num_samples_backward": num_samples_backward,
+        "multinomial": multinomial, "robust": robust, "marginal": marginal,
+        "streaming_blocks": streaming_blocks,
+    }
+    for s in seeds:
+        with open(os.path.join(path, f"flags{s}.txt"), "w") as f:
+            for k, v in {**flags, "seed": s}.items():
+                print(f"--{k}={v}", file=f)
+        with open(os.path.join(path, f"log_normalizing_constants_optimal_{s}.txt"), "w") as f:
+            print(all_log_norm[s], file=f)
+        with open(os.path.join(path, f"optimal_time_{s}.txt"), "w") as f:
+            print(times[s], file=f)
+        with open(os.path.join(path, f"optimal_time_backward_{s}.txt"), "w") as f:
+            print(times_backward[s], file=f)
+    return all_log_norm if len(seeds) > 1 else all_log_norm[seeds[0]]

@@ -1,0 +1,143 @@
+"""The port's numerics (hygeia_tpu_torch.ops, make_params) against the JAX
+package's on the same inputs, made with numpy from a seed.
+
+Tolerances: f64 log-densities rtol 1e-12 plus atol 1e-12 (XLA's and libm's
+lgamma differ in the last bits, and a log-pmf near 0 is a sum of nine
+lgamma terms of size ~100 that cancel); make_params rtol 1e-10 (the hazard
+table divides two such values through exp); the f32 hazard table rtol 1e-3
+where both are finite (f32 lgamma rounding amplified by the
+survival-function ratio).
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from hygeia_tpu.ops import distributions as jd
+from hygeia_tpu.ops.emissions import emission_log_prob_table as j_emission
+from hygeia_tpu.ops.hazard import rho_two_group as j_rho
+from hygeia_tpu.two_group.model import make_params as j_make_params
+from hygeia_tpu_torch.ops import distributions as td
+from hygeia_tpu_torch.ops.emissions import emission_log_prob_table as t_emission
+from hygeia_tpu_torch.ops.hazard import gather_rho, rho_two_group as t_rho
+from hygeia_tpu_torch.two_group.model import make_params as t_make_params
+
+# The tensors here are small: one intra-op thread per test worker keeps the
+# parallel workers from oversubscribing the cores.
+torch.set_num_threads(1)
+
+F64 = torch.float64
+
+
+def _t(x):
+    return torch.tensor(np.asarray(x), dtype=F64)
+
+
+def test_distributions_match_jax_f64():
+    rng = np.random.default_rng(0)
+    n = rng.integers(0, 60, 500).astype(np.float64)
+    x = np.floor(rng.uniform(0, 1, 500) * (n + 3)) - 1  # includes x < 0 and x > n
+    a = rng.uniform(0.2, 30, 500)
+    b = rng.uniform(0.2, 30, 500)
+    want = np.asarray(jd.beta_binomial_log_pmf(jnp.asarray(x), jnp.asarray(n), jnp.asarray(a), jnp.asarray(b)))
+    got = td.beta_binomial_log_pmf(_t(x), _t(n), _t(a), _t(b)).numpy()
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-12, atol=1e-12)
+
+    k = np.concatenate([rng.integers(0, 400, 300), [-1, 0, 0]]).astype(np.float64)
+    size = rng.uniform(0.5, 5, 303)
+    prob = np.concatenate([rng.uniform(0.01, 0.99, 300), [0.5, 0.0, 0.0]])
+    k[-1] = 3.0  # prob == 0 at x > 0 -> -inf; x == 0 -> 0
+    want = np.asarray(jd.neg_binomial_log_pmf(jnp.asarray(k), jnp.asarray(size), jnp.asarray(prob)))
+    got = td.neg_binomial_log_pmf(_t(k), _t(size), _t(prob)).numpy()
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-12, atol=1e-12)
+
+    mu = rng.uniform(0.05, 0.95, 6)
+    sigma = rng.uniform(0.01, 0.1, 6)
+    for g, w in zip(td.mu_sigma_to_alpha_beta(_t(mu), _t(sigma)), jd.mu_sigma_to_alpha_beta(jnp.asarray(mu), jnp.asarray(sigma))):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12)
+    z = rng.normal(size=50) * 4
+    np.testing.assert_allclose(td.inv_logit(_t(z)).numpy(), np.asarray(jd.inv_logit(jnp.asarray(z))), rtol=1e-12)
+    p = rng.uniform(0.01, 0.99, 50)
+    np.testing.assert_allclose(td.logit(_t(p)).numpy(), np.asarray(jd.logit(jnp.asarray(p))), rtol=1e-12)
+
+
+def test_emission_table_matches_jax_f64():
+    rng = np.random.default_rng(1)
+    T, S, R = 300, 3, 6
+    n = rng.poisson(20, size=(T, S)).astype(np.float64)
+    n[::17] = 0  # all-missing sites contribute 0
+    y = np.minimum(rng.poisson(9, size=(T, S)), n)
+    alpha = rng.uniform(0.5, 40, R)
+    beta = rng.uniform(0.5, 40, R)
+    want = np.asarray(j_emission(y, n, jnp.asarray(alpha), jnp.asarray(beta), dtype=jnp.float64))
+    got = t_emission(y, n, _t(alpha), _t(beta), dtype=F64).numpy()
+    assert got.shape == (T, R)
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+
+
+def _param_kwargs(R, seed):
+    rng = np.random.default_rng(seed)
+    logp = np.where(np.eye(R, dtype=bool), -np.inf, rng.normal(size=(R, R)))
+    return dict(
+        mu=np.linspace(0.1, 0.9, R),
+        sigma=np.full(R, 0.08),
+        p_softmax_control=logp,
+        omega_logit_control=rng.normal(size=R),
+        omega_case=0.8,
+        kappa_control=np.full(R, 2.0),
+        kappa_case=np.full(R, 2.0),
+        merge_log_prob=np.log(0.1),
+        split_prob=0.01,
+        minimum_duration=3,
+        d_max=96,
+    )
+
+
+def test_make_params_matches_jax_f64():
+    kw = _param_kwargs(6, 5)
+    want = j_make_params(**kw, dtype=jnp.float64)
+    got = t_make_params(**kw, dtype=F64)
+    assert got.n_regimes == want.n_regimes and got.min_duration == want.min_duration
+    for name in ("mu", "sigma", "alpha", "beta", "log_p_control", "log_p_merged", "rho_control", "rho_case"):
+        g, w = getattr(got, name).numpy(), np.asarray(getattr(want, name))
+        assert g.dtype == np.float64 and g.shape == w.shape, name
+        np.testing.assert_array_equal(np.isneginf(g), np.isneginf(w), err_msg=name)
+        fin = np.isfinite(w)
+        np.testing.assert_allclose(g[fin], w[fin], rtol=1e-10, err_msg=name)
+
+
+def _first_guard_column(rho):
+    hit = rho == np.float32(0.1)
+    return np.where(hit.any(axis=1), hit.argmax(axis=1), -1)
+
+
+def test_f32_hazard_table_keeps_jax_guard_onset():
+    """At f32 the survival function underflows in the deep tail and the 0.1
+    guard takes over; the port's table switches at the JAX table's column
+    (+-1) for omega in {0.8, sigmoid(+2), sigmoid(-2)}, d_max 4096."""
+    omega = np.array([0.8, 1 / (1 + np.exp(-2.0)), 1 / (1 + np.exp(2.0))], np.float32)
+    kappa = np.full(3, 2.0, np.float32)
+    want = np.asarray(j_rho(jnp.asarray(kappa), jnp.asarray(omega), 3, 4096))
+    got = t_rho(torch.from_numpy(kappa), torch.from_numpy(omega), 3, 4096).numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape
+    gw, gg = _first_guard_column(want), _first_guard_column(got)
+    assert np.all(gw > 0), gw  # the f32 guard fires in every row
+    np.testing.assert_allclose(gg, gw, atol=1)
+    both = (want != np.float32(0.1)) & (got != np.float32(0.1)) & (want > 0)
+    np.testing.assert_allclose(got[both], want[both], rtol=1e-3)
+    np.testing.assert_array_equal(got == 0, want == 0)  # the d < u zeros
+
+
+@pytest.mark.parametrize("dead_regime", [-1, 0])
+def test_gather_rho_clamps_sojourn_and_regime(dead_regime):
+    table = torch.arange(12, dtype=F64).reshape(3, 4)
+    d = torch.tensor([1, 4, 9, 0])
+    r = torch.tensor([2, 1, 0, dead_regime])
+    got = gather_rho(table, d, r)
+    assert got.tolist()[:3] == [8.0, 7.0, 3.0]
+    assert got[3].item() == 0.0  # clamped to [0, 0]
