@@ -1,23 +1,43 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (hygeia_tpu_torch) on one CUDA GPU.
 
-    python3 chip_smoke.py               # the full check, as a user's run
-    python3 chip_smoke.py --sites 5000  # a shorter segment, for a quick look
+    python3 chip_smoke.py                                       # the full check
+    python3 chip_smoke.py --chrom_sites 3300 --sites 3000 --buffer 300  # a quick look
 
 Phases, each of which raises (exit code non-zero) when it fails:
 
 1. the card's name and power limit (nvidia-smi);
 2. the build of hygeia_tpu_torch/csrc/*.cu for sm_90a, and its seconds;
-3. the optimal-resampler kernel against its plain PyTorch version at
-   U=32, N=2400, M=50 on the same uniforms: 8 trials of Gumbel weights with
-   20% dead slots, a fallback case (fewer than M live weights) and an exact
-   ties case; 8 trials more at the main path's own shape (U=1); then both
-   timed with CUDA events over 100 calls, at U=32 and at U=1;
-4. the slice: a seeded reference-format chromosome of 105,000 CpGs is
-   written to a temporary directory and ``hygeia_tpu_torch.cli infer`` runs
-   on it (segment 100,000 + halo 5,000, M=50 -> N=2400, B=25, f32), with
-   checks on every output file, logZ, the degenerate-step count, the
-   kernel's launch count and the planted differentially methylated windows.
+3. the optimal-resampler kernel against its plain PyTorch version on the
+   same uniforms (parents, top-M indices and fallback flags equal; log_c
+   and the new weights within rtol 1e-5):
+   - two-group INFER's shape U=32, N=2400, M=50: 8 trials of Gumbel
+     weights with 20% dead slots, a fallback case (fewer than M live
+     weights) and an exact ties case; 8 trials more at U=1;
+   - the single-group engine's shape N=250, M=244 at U=1 and U=8:
+     growth-phase weights (the first 6(t+1) slots live, t = 1, 20, 40), 8
+     trials of Gumbel weights, an exact ties case;
+   - two-group M=150 (N=7200), past the old 128-slot bound;
+   then timed with CUDA events over 100 calls at U=1 for both main shapes
+   and at U=32 for the two-group one;
+4. the single-group hazard tables (``build_tables`` at the CLI defaults,
+   kappa fixed and free) on the card and on the CPU: bit-identical f32
+   rho, exit latch and gradient tables; the latch onsets are printed;
+5. a seeded reference-format chromosome of 105,000 CpGs is written to a
+   temporary directory: 2 control + 2 case samples for ``infer`` and the
+   two control samples as headed CSVs for the single-group engine, which
+   reads all of it;
+6. ``hygeia_tpu_torch.cli estimate_parameters_and_regimes`` on the control
+   samples (N=250, M_cap=244, S_cap=128, D=36, both estimates on, f32),
+   with checks on its output files, logZ, the theta trace, the kernel's
+   launch count and the planted high and low methylation stretches; its
+   theta file is the one the next phase reads;
+7. ``hygeia_tpu_torch.cli infer`` on the estimated theta, batch 0 of the
+   chromosome (segment 50,000 + halo 5,000, M=50 -> N=2400, B=25, f32;
+   the segment is cut from the production 100,000 to keep the whole check
+   near half its 1200 s limit), with checks on every output file, logZ,
+   the degenerate-step count, the kernel's launch count and the planted
+   differentially methylated windows.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc;
@@ -43,6 +63,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 R = 6
 MU = (0.95, 0.05, 0.80, 0.20, 0.50, 0.50)
 SIGMA = (0.05, 0.05, 0.1, 0.1, 0.1, 0.2886751)
+SG_MU = (0.99, 0.01, 0.80, 0.20, 0.50, 0.50)  # the single-group CLI's defaults
+SG_N = 250  # the single-group CLI's --n_particles default: M_cap = N - R
 
 
 class SmokeFailure(RuntimeError):
@@ -74,9 +96,9 @@ def _normalised_gumbel(rng, U, N, scale, dead_frac, device):
     return (t - torch.logsumexp(t, dim=-1, keepdim=True)).contiguous()
 
 
-def kernel_phase(device, U=32, N=2400, M=50, seed=0):
-    """Kernel against plain version at U units and at the main path's U=1.
-    Returns (max_abs_err, (kernel ms, plain ms) at U=1, the same at U)."""
+def kernel_phase(device, seed=0):
+    """Kernel against plain version at the two main paths' shapes and past
+    the old bounds. Returns (max_abs_err, {label: (kernel ms, plain ms)})."""
     import numpy as np
     import torch
     from hygeia_tpu_torch.ops import resampling as plain
@@ -85,19 +107,19 @@ def kernel_phase(device, U=32, N=2400, M=50, seed=0):
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=device).manual_seed(seed)
 
-    def uniforms(units):
+    def uniforms(units, M):
         return (torch.rand((units,), generator=gen, device=device),
                 torch.rand((units, M), generator=gen, device=device))
 
-    def compare(lw, label, exact=True):
-        us, um = uniforms(lw.shape[0])
+    def compare(lw, M, label, exact=True):
+        us, um = uniforms(lw.shape[0], M)
         got = optimal_resampling_cuda(lw, M, us, um)
         want = plain.optimal_finite_state_resampling(lw, M, us, um)
         torch.cuda.synchronize(device)
+        check(torch.equal(got.top_m_indices, want.top_m_indices.to(torch.int32)), f"{label}: top-M indices differ")
         if not exact:
             return got, 0.0
         check(torch.equal(got.use_unbiased, want.use_unbiased), f"{label}: fallback flags differ")
-        check(torch.equal(got.top_m_indices, want.top_m_indices.to(torch.int32)), f"{label}: top-M indices differ")
         check(torch.equal(got.parent_indices, want.parent_indices), f"{label}: parents differ")
         err = 0.0
         for name in ("log_c", "new_log_weights"):
@@ -106,10 +128,20 @@ def kernel_phase(device, U=32, N=2400, M=50, seed=0):
             err = max(err, float((g - w).abs().max()))
         return got, err
 
+    def ties_invariant(got, lw, M, label):
+        check(not bool(got.use_unbiased.any()), f"{label}: unexpected fallback")
+        c = torch.exp(got.log_c.double())[:, None]
+        mass = torch.clamp(c * torch.exp(lw.double()), max=1.0).sum(dim=-1)
+        check(bool(torch.allclose(mass, torch.full_like(mass, M), rtol=1e-3)), f"{label}: sum min(1, cW) != M")
+        p = got.parent_indices
+        check(int(p.min()) >= 0 and int(p.max()) < lw.shape[1], f"{label}: parent out of range")
+
     max_err = 0.0
+    # Two-group INFER: N = 2400, M = 50.
+    U, N, M = 32, 2400, 50
     for trial in range(8):
         lw = _normalised_gumbel(rng, U, N, 1.0 + trial, 0.2, device)
-        max_err = max(max_err, compare(lw, f"trial {trial}")[1])
+        max_err = max(max_err, compare(lw, M, f"trial {trial}")[1])
     print(f"kernel vs plain: 8 Gumbel trials U={U} N={N} M={M}: parents and top-M equal, "
           f"max |err| log_c/new_w {max_err:.3g}")
 
@@ -117,34 +149,54 @@ def kernel_phase(device, U=32, N=2400, M=50, seed=0):
     few[:, :10] = rng.gumbel(size=(U, 10))
     t = torch.from_numpy(few).to(device)
     lw = (t - torch.logsumexp(t, dim=-1, keepdim=True)).contiguous()
-    got, err = compare(lw, "fallback")
+    got, err = compare(lw, M, "fallback")
     max_err = max(max_err, err)
     check(bool(got.use_unbiased.all()), "fallback: not every unit fell back")
     check(int(got.parent_indices.max()) < 10, "fallback: a dead slot was selected")
     print("kernel vs plain: fallback (10 live < M): equal, every unit multinomial")
 
     lw = torch.full((U, N), -math.log(N), dtype=torch.float32, device=device)
-    got, _ = compare(lw, "ties", exact=False)
-    check(not bool(got.use_unbiased.any()), "ties: unexpected fallback")
-    c = torch.exp(got.log_c.double())[:, None]
-    mass = torch.clamp(c * torch.exp(lw.double()), max=1.0).sum(dim=-1)
-    check(bool(torch.allclose(mass, torch.full_like(mass, M), rtol=1e-3)), "ties: sum min(1, cW) != M")
-    p = got.parent_indices
-    check(int(p.min()) >= 0 and int(p.max()) < N, "ties: parent out of range")
-    print("kernel ties: sum_i min(1, c W_i) = M holds for every unit")
+    got, _ = compare(lw, M, "ties", exact=False)
+    ties_invariant(got, lw, M, "ties")
+    print("kernel ties: top-M equal, sum_i min(1, c W_i) = M holds for every unit")
 
-    # The main path's own shape: one unit (one seed per CLI call).
     rng1 = np.random.default_rng(seed + 1)
     for trial in range(8):
         lw = _normalised_gumbel(rng1, 1, N, 1.0 + trial, 0.2, device)
-        max_err = max(max_err, compare(lw, f"U=1 trial {trial}")[1])
-    print(f"kernel vs plain: 8 Gumbel trials at the main path's shape U=1 N={N} M={M}: equal")
+        max_err = max(max_err, compare(lw, M, f"U=1 trial {trial}")[1])
+    print(f"kernel vs plain: 8 Gumbel trials at U=1 N={N} M={M}: equal")
 
-    def timed(units):
+    # The single-group engine: N = 250, M_cap = 244 (the sort path).
+    N_sg, M_sg = SG_N, SG_N - R
+    for units in (1, 8):
+        for t_site in (1, 20, 40):
+            live = min(R * (t_site + 1), N_sg)
+            g = rng.gumbel(size=(units, N_sg)).astype(np.float32)
+            g[:, live:] = -np.inf
+            t = torch.from_numpy(g).to(device)
+            lw = (t - torch.logsumexp(t, dim=-1, keepdim=True)).contiguous()
+            max_err = max(max_err, compare(lw, M_sg, f"growth t={t_site} U={units}")[1])
+        for trial in range(8):
+            lw = _normalised_gumbel(rng, units, N_sg, 1.0 + trial, 0.0, device)
+            max_err = max(max_err, compare(lw, M_sg, f"sg trial {trial} U={units}")[1])
+        lw = torch.full((units, N_sg), -math.log(N_sg), dtype=torch.float32, device=device)
+        got, _ = compare(lw, M_sg, f"sg ties U={units}", exact=False)
+        ties_invariant(got, lw, M_sg, f"sg ties U={units}")
+    print(f"kernel vs plain at the engine's N={N_sg} M={M_sg}, U=1 and 8: growth phase "
+          f"(t = 1, 20, 40), 8 Gumbel trials: equal; ties: top-M equal, invariant holds")
+
+    # Two-group M = 150: N = 7200, past the old bounds (M + 1 <= 128, N <= 5233).
+    N_big, M_big = 150 * (2 * R + R * R), 150
+    for trial in range(4):
+        lw = _normalised_gumbel(rng, 4, N_big, 1.0 + trial, 0.2, device)
+        max_err = max(max_err, compare(lw, M_big, f"M=150 trial {trial}")[1])
+    print(f"kernel vs plain: 4 Gumbel trials U=4 N={N_big} M={M_big}: equal")
+
+    def timed(units, N, M):
         """(kernel ms, plain ms) per call, CUDA events over 100 calls,
         in turns plain, kernel, kernel, plain; best of each pair."""
-        lw = _normalised_gumbel(np.random.default_rng(seed + 2), units, N, 1.0, 0.2, device)
-        us, um = uniforms(units)
+        lw = _normalised_gumbel(np.random.default_rng(seed + 2), units, N, 1.0, 0.2 if N > SG_N else 0.0, device)
+        us, um = uniforms(units, M)
         times = {}
         for name, fn in (("plain", plain.optimal_finite_state_resampling),
                          ("kernel", optimal_resampling_cuda),
@@ -165,9 +217,49 @@ def kernel_phase(device, U=32, N=2400, M=50, seed=0):
               f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
         return k_ms, p_ms
 
-    k32, p32 = timed(U)
-    k1, p1 = timed(1)
-    return max_err, (k1, p1), (k32, p32)
+    times = {
+        "single_group": timed(1, N_sg, M_sg),
+        "two_group": timed(1, N, M),
+        "two_group_u32": timed(U, N, M),
+        "two_group_m150": timed(1, N_big, M_big),
+    }
+    return max_err, times
+
+
+# ---------------------------------------------------------------- hazard ----
+
+def hazard_phase(device):
+    """build_tables at the CLI defaults on the card and on the CPU: the f32
+    tables must be bit-identical. Returns the latch onsets per regime."""
+    import numpy as np
+    import torch
+    from hygeia_tpu_torch.single_group.model import build_tables, make_model, parameters_to_theta
+
+    p = np.full((R, R), 1.0 / (R - 1))
+    np.fill_diagonal(p, 0.0)
+    omega = np.array([0.995, 0.975, 0.950, 0.925, 0.900, 0.900])
+    kappa = np.full(R, 2.0)
+    sigma = (0.05, 0.05, 0.20, 0.20, 0.20, 0.2886751)
+    onsets = {}
+    for kappa_fixed in (True, False):
+        theta = parameters_to_theta(p, omega, kappa, kappa_fixed=kappa_fixed)
+        tables = {}
+        for dev in (torch.device("cpu"), device):
+            model = make_model(SG_MU, sigma, 2, kappa, kappa_fixed=kappa_fixed, d_max=4096, device=dev)
+            th = torch.as_tensor(theta, dtype=torch.float32, device=dev)
+            tables[dev.type] = build_tables(model, th)
+        label = "kappa fixed" if kappa_fixed else "kappa free"
+        names = ["rho", "exit_status", "grad_omega_log_rho"] + ([] if kappa_fixed else ["grad_kappa_log_rho"])
+        for name in names:
+            a, b = getattr(tables["cpu"], name), getattr(tables["cuda"], name).cpu()
+            check(a.dtype == b.dtype and torch.equal(a, b),
+                  f"hazard {label}: {name} differs between the CPU and the card "
+                  f"({int((a != b).sum())} entries)")
+        ex = tables["cuda"].exit_status.cpu().numpy()
+        onsets[label] = [int(r.argmax()) if r.any() else None for r in ex]
+        print(f"hazard tables ({label}, f32, d_max 4096): CPU and card bit-identical "
+              f"({', '.join(names)}); exit-latch onsets per regime {onsets[label]}")
+    return onsets
 
 
 # ----------------------------------------------------------------- slice ----
@@ -176,7 +268,9 @@ def make_dataset(root, n_sites, seed=0, n_dmr=20, dmr_len=300):
     """A reference-format chromosome "1": piecewise-constant control regimes
     drawn from the default mu/sigma Betas, Poisson(20) depth, 2 control and
     2 case samples; in n_dmr planted windows the case samples flip between
-    the high (0.95) and low (0.05) regimes. Returns the DMR site mask."""
+    the high (0.95) and low (0.05) regimes. The control samples are also
+    written as the single-group engine's headed CSVs. Returns (data dir,
+    single-group dir, DMR site mask, control regime of every site)."""
     import numpy as np
     from hygeia_tpu_torch.utils import io as hio
 
@@ -211,24 +305,107 @@ def make_dataset(root, n_sites, seed=0, n_dmr=20, dmr_len=300):
     hio.write_count_matrix(os.path.join(data_dir, "n_methylated_reads_control_1.txt.gz"), y_c)
     hio.write_count_matrix(os.path.join(data_dir, "n_total_reads_case_1.txt.gz"), n_k)
     hio.write_count_matrix(os.path.join(data_dir, "n_methylated_reads_case_1.txt.gz"), y_k)
-    theta = np.concatenate([np.zeros(R * (R - 1)), np.full(R, math.log(0.99 / 0.01))])
-    hio.write_theta(os.path.join(sg_dir, "theta_1.csv.gz"), theta)
-    return data_dir, sg_dir, dmr
+    sg_in = os.path.join(root, "single_group_input")
+    hio.write_headed_matrix(os.path.join(sg_in, "n_methylated_reads_1.csv"), y_c.T, "sample")
+    hio.write_headed_matrix(os.path.join(sg_in, "n_total_reads_1.csv"), n_c.T, "sample")
+    hio.write_headed_column(os.path.join(sg_in, "genomic_positions_1.csv"), positions, "genomic_positions")
+    return data_dir, sg_dir, dmr, regime
 
 
-def slice_phase(device, root, segment_size, buffer_size, seed=0):
-    """Run the infer verb through the CLI on a seeded chromosome and check
-    its outputs. Returns (stats dict, kernel launches in the run)."""
+def single_group_phase(device, root, regime):
+    """Run estimate_parameters_and_regimes through the CLI on the control
+    samples and check its outputs; its theta file is what infer reads next.
+    Returns (stats dict, kernel launches in the run)."""
+    import numpy as np
+    import torch
+    from hygeia_tpu_torch import cli
+    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
+    from hygeia_tpu_torch.utils import io as hio
+
+    sg_in = os.path.join(root, "single_group_input")
+    sg_dir = os.path.join(root, "single_group")
+    T = regime.size
+    argv = [
+        "estimate_parameters_and_regimes",
+        "--n_methylated_reads_csv_file", os.path.join(sg_in, "n_methylated_reads_1.csv"),
+        "--n_total_reads_csv_file", os.path.join(sg_in, "n_total_reads_1.csv"),
+        "--genomic_positions_csv_file", os.path.join(sg_in, "genomic_positions_1.csv"),
+        "--estimate_parameters", "--estimate_regime_probabilities",
+        "--n_particles", str(SG_N), "--device", str(device),
+        "--regime_probabilities_csv_file", os.path.join(sg_dir, "regime_probs_1.csv"),
+        "--theta_trace_csv_file", os.path.join(sg_dir, "theta_trace_1.csv"),
+        "--p_csv_file", os.path.join(sg_dir, "p_1.csv"),
+        "--omega_csv_file", os.path.join(sg_dir, "omega_1.csv"),
+        "--kappa_csv_file", os.path.join(sg_dir, "kappa_1.csv"),
+        "--theta_file", os.path.join(sg_dir, "theta_1.csv.gz"),
+        "--progress_every", "0",
+    ]
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    KERNEL.launches = 0
+    t0 = time.perf_counter()
+    res = cli.main(argv)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = KERNEL.launches
+
+    names = {
+        "regime_probs_1.csv": ["genomic_position"] + [f"regime_{i + 1}" for i in range(R)],
+        "theta_trace_1.csv": [f"theta_{i + 1}" for i in range(R * R)],
+        "p_1.csv": [f"regime_{i + 1}" for i in range(R)],
+        "omega_1.csv": ["omega"],
+        "kappa_1.csv": ["kappa"],
+        "theta_1.csv.gz": ["data"],
+    }
+    shapes = {"regime_probs_1.csv": (T, 1 + R), "theta_trace_1.csv": (T, R * R), "p_1.csv": (R, R),
+              "omega_1.csv": (R, 1), "kappa_1.csv": (R, 1), "theta_1.csv.gz": (R * R, 1)}
+    tabs = {}
+    for name, header in names.items():
+        path = os.path.join(sg_dir, name)
+        check(os.path.exists(path), f"single group: missing {name}")
+        cols, vals = hio.read_headed_table(path)
+        check(cols == header, f"single group: {name} header {cols[:3]}..., expected {header[:3]}...")
+        check(vals.shape == shapes[name], f"single group: {name} shape {vals.shape}, expected {shapes[name]}")
+        tabs[name] = vals
+    log_z = float(res.log_normalizing_constant[0])
+    spill = int(res.spill_count[0])
+    check(math.isfinite(log_z), f"single group: logZ not finite: {log_z}")
+    check(bool(np.isfinite(tabs["theta_trace_1.csv"]).all()), "single group: non-finite theta trace")
+    check(np.allclose(tabs["p_1.csv"].sum(1), 1, atol=1e-5), "single group: rows of P do not sum to 1")
+    probs = tabs["regime_probs_1.csv"][:, 1:]
+    check(bool(np.isfinite(probs).all()), "single group: non-finite regime probabilities")
+    check(np.allclose(probs.sum(1), 1, atol=1e-4), "single group: regime probabilities do not sum to 1")
+    check(launches >= T - 1, f"single group: kernel launched {launches} times for T={T} sites")
+    level = probs @ np.asarray(SG_MU)
+    mu_true = np.asarray(MU)[regime]
+    hi, lo = float(level[mu_true >= 0.8].mean()), float(level[mu_true <= 0.2].mean())
+    check(hi - lo >= 0.5, f"single group: mean level over high stretches {hi:.3f} vs low {lo:.3f}")
+    stats = {
+        "sites": T, "logZ": log_z, "wall_s": wall, "sites_per_s": T / wall,
+        "ms_per_site": 1e3 * wall / T, "spill_count": spill,
+        "level_high": hi, "level_low": lo,
+        "max_memory_allocated_bytes": (torch.cuda.max_memory_allocated(device)
+                                       if device.type == "cuda" else None),
+    }
+    print(f"single group: T={T} N={SG_N} M_cap={SG_N - R} logZ={log_z:.3f} launches={launches} "
+          f"spills={spill} {wall:.2f} s, {stats['sites_per_s']:.1f} sites/s, "
+          f"{stats['ms_per_site']:.3f} ms/site, mean level high {hi:.3f} vs low {lo:.3f}, "
+          f"max_memory_allocated {stats['max_memory_allocated_bytes']}")
+    return stats, launches
+
+
+def slice_phase(device, root, data_dir, sg_dir, dmr, segment_size, buffer_size, seed=0):
+    """Run the infer verb through the CLI on the seeded chromosome and the
+    estimated theta, and check its outputs. Returns (stats dict, kernel
+    launches in the run)."""
     import numpy as np
     import torch
     from hygeia_tpu_torch import cli
     from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
 
     n_sites = segment_size + buffer_size
-    t0 = time.perf_counter()
-    data_dir, sg_dir, dmr = make_dataset(root, n_sites, seed)
-    print(f"dataset: {n_sites} CpGs, {int(dmr.sum())} sites in planted DMRs, "
-          f"written in {time.perf_counter() - t0:.1f} s")
+    dmr = dmr[:n_sites]  # batch 0's window
     results = os.path.join(root, "results")
     argv = [
         "infer", "--data_dir", data_dir, "--single_group_dir", sg_dir,
@@ -296,9 +473,13 @@ def slice_phase(device, root, segment_size, buffer_size, seed=0):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--sites", type=int, default=100_000, help="segment size (default 100000)")
-    ap.add_argument("--buffer", type=int, default=5_000, help="halo size (default 5000)")
+    ap.add_argument("--chrom_sites", type=int, default=105_000,
+                    help="CpGs of the chromosome, all read by the single-group engine (default 105000)")
+    ap.add_argument("--sites", type=int, default=50_000, help="infer's segment size (default 50000)")
+    ap.add_argument("--buffer", type=int, default=5_000, help="infer's halo size (default 5000)")
     args = ap.parse_args(argv)
+    if args.sites + args.buffer > args.chrom_sites:
+        ap.error("the infer segment and halo must fit in the chromosome")
 
     import torch
 
@@ -326,27 +507,41 @@ def main(argv=None):
         if "registers" in line or "smem" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
 
-    max_err, (k_ms, p_ms), (k32_ms, p32_ms) = kernel_phase(device)
+    max_err, times = kernel_phase(device)
+    onsets = hazard_phase(device)
 
     root = tempfile.mkdtemp(prefix="hygeia_smoke_")
     try:
-        stats, launches = slice_phase(device, root, args.sites, args.buffer)
+        t0 = time.perf_counter()
+        data_dir, sg_dir, dmr, regime = make_dataset(root, args.chrom_sites)
+        print(f"dataset: {args.chrom_sites} CpGs, {int(dmr.sum())} sites in planted DMRs, "
+              f"written in {time.perf_counter() - t0:.1f} s")
+        sg_stats, sg_launches = single_group_phase(device, root, regime)
+        stats, launches = slice_phase(device, root, data_dir, sg_dir, dmr, args.sites, args.buffer)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
+    k_ms, p_ms = times["single_group"]
     print(json.dumps({"kernels": [{
         "name": "optimal_resampling",
         "route": "cuda",
         "source": "hygeia_tpu_torch/csrc/optimal_resampling.cu",
         "replaces": "hygeia_tpu/ops/pallas_resampling.py:50",
-        "launches": launches,
+        "launches": sg_launches + launches,
+        "launches_single_group": sg_launches,
+        "launches_two_group": launches,
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,
-        "shape": "U=1 N=2400 M=50 (one seed per infer call)",
-        "ms_u32": k32_ms,
-        "plain_ms_u32": p32_ms,
-    }], "card": card, "slice": stats}))
+        "shape": f"U=1 N={SG_N} M={SG_N - R} (single-group engine)",
+        "ms_two_group": times["two_group"][0],
+        "plain_ms_two_group": times["two_group"][1],
+        "shape_two_group": "U=1 N=2400 M=50 (one seed per infer call)",
+        "ms_u32": times["two_group_u32"][0],
+        "plain_ms_u32": times["two_group_u32"][1],
+        "ms_m150": times["two_group_m150"][0],
+        "plain_ms_m150": times["two_group_m150"][1],
+    }], "card": card, "hazard_onsets": onsets, "single_group": sg_stats, "slice": stats}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

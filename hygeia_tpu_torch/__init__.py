@@ -16,10 +16,12 @@ Conventions:
 
 Subpackages
 -----------
-ops        Distributions, hazard tables, emission tables, resampling, and
-           the CUDA optimal resampler (``csrc/optimal_resampling.cu``).
-two_group  Case/control particle filter, backward simulation, INFER runner.
-utils      numpy+gzip readers and writers of the reference file formats.
+ops           Distributions, hazard tables, emission tables, resampling, and
+              the CUDA optimal resampler (``csrc/optimal_resampling.cu``).
+single_group  Single-group model and online engine (regime probabilities
+              and theta), the ``estimate_parameters_and_regimes`` runner.
+two_group     Case/control particle filter, backward simulation, INFER runner.
+utils         numpy+gzip readers and writers of the reference file formats.
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,10 @@
-"""The port's command-line interface: the ``infer`` verb.
+"""The port's command-line interface: the ``estimate_parameters_and_regimes``
+and ``infer`` verbs.
 
+    python -m hygeia_tpu_torch.cli estimate_parameters_and_regimes ... --device cuda
     python -m hygeia_tpu_torch.cli infer --data_dir ... --device cuda
 
-Same flags as ``hygeia_tpu.cli infer``, plus ``--device`` (default
+Same flags as the verbs of ``hygeia_tpu.cli``, plus ``--device`` (default
 ``cuda``). There is no fallback: when the device asked for is not there,
 the command raises; it never carries on on the CPU. The CPU path exists for
 the tests, which pass ``--device cpu`` themselves.
@@ -55,9 +57,47 @@ def build_parser():
     sp.add_argument("--batch", type=int, default=0)
     sp.add_argument("--segment_size", type=int, default=100000)
     sp.add_argument("--buffer_size", type=int, default=5000)
+    _add_device(sp)
+
+    sp = sub.add_parser("estimate_parameters_and_regimes",
+                        help="single-group engine: regime probabilities and theta")
+    sp.add_argument("--mu", type=_csv_floats, default=[0.99, 0.01, 0.80, 0.20, 0.50, 0.50])
+    sp.add_argument("--sigma", type=_csv_floats, default=[0.05, 0.05, 0.20, 0.20, 0.20, 0.2886751])
+    sp.add_argument("--u", type=int, default=2)
+    sp.add_argument("--kappa", type=_csv_floats, default=[2.0] * 6)
+    sp.add_argument("--omega", type=_csv_floats, default=[0.995, 0.975, 0.950, 0.925, 0.900, 0.900])
+    sp.add_argument("--p_input_csv_file", default=None)
+    sp.add_argument("--kappa_input_csv_file", default=None)
+    sp.add_argument("--omega_input_csv_file", default=None)
+    sp.add_argument("--n_methylated_reads_csv_file", required=True)
+    sp.add_argument("--genomic_positions_csv_file", required=True)
+    sp.add_argument("--n_total_reads_csv_file", required=True)
+    sp.add_argument("--regime_probabilities_csv_file", default=None)
+    sp.add_argument("--theta_trace_csv_file", default=None)
+    sp.add_argument("--omega_csv_file", default="omega.csv")
+    sp.add_argument("--kappa_csv_file", default="kappa.csv")
+    sp.add_argument("--p_csv_file", default="p.csv")
+    sp.add_argument("--theta_file", default="theta.csv")
+    sp.add_argument("--is_kappa_fixed", type=lambda s: s.lower() != "false", default=True)
+    sp.add_argument("--n_particles", type=int, default=250)
+    sp.add_argument("--estimate_regime_probabilities", action="store_true")
+    sp.add_argument("--estimate_parameters", action="store_true")
+    sp.add_argument("--epsilon", type=float, default=0.01)
+    sp.add_argument("--normalise_gradients", type=lambda s: s.lower() == "true", default=False)
+    sp.add_argument("--use_adam", type=lambda s: s.lower() != "false", default=True)
+    sp.add_argument("--n_steps_without_parameter_update", type=int, default=200)
+    sp.add_argument("--learning_rate_exponent", type=float, default=0.1)
+    sp.add_argument("--learning_rate_factor", type=float, default=0.01)
+    sp.add_argument("--rng_seed", type=int, default=0)
+    sp.add_argument("--progress_every", type=int, default=1000,
+                    help="print engine progress every N sites, 0 = off")
+    _add_device(sp)
+    return p
+
+
+def _add_device(sp):
     sp.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda); raises if it is not available")
-    return p
 
 
 def resolve_device(name) -> torch.device:
@@ -77,8 +117,56 @@ def resolve_device(name) -> torch.device:
     return dev
 
 
+def _estimate_parameters_and_regimes(args):
+    from hygeia_tpu_torch.single_group.runner import estimate_parameters_and_regimes
+    from hygeia_tpu_torch.utils import io as hio
+
+    device = resolve_device(args.device)
+    p = None
+    if args.p_input_csv_file:
+        p = hio.read_headed_table(args.p_input_csv_file)[1]
+    omega = args.omega
+    if args.omega_input_csv_file:
+        omega = hio.read_headed_column(args.omega_input_csv_file)
+    kappa = args.kappa
+    if args.kappa_input_csv_file:
+        kappa = hio.read_headed_column(args.kappa_input_csv_file)
+    return estimate_parameters_and_regimes(
+        n_methylated_reads_csv_file=args.n_methylated_reads_csv_file,
+        genomic_positions_csv_file=args.genomic_positions_csv_file,
+        n_total_reads_csv_file=args.n_total_reads_csv_file,
+        device=device,
+        mu=args.mu,
+        sigma=args.sigma,
+        u=args.u,
+        kappa=kappa,
+        omega=omega,
+        p=p,
+        is_kappa_fixed=args.is_kappa_fixed,
+        n_particles=args.n_particles,
+        estimate_regime_probabilities=args.estimate_regime_probabilities,
+        estimate_parameters=args.estimate_parameters,
+        epsilon=args.epsilon,
+        normalise_gradients=args.normalise_gradients,
+        use_adam=args.use_adam,
+        n_steps_without_parameter_update=args.n_steps_without_parameter_update,
+        learning_rate_exponent=args.learning_rate_exponent,
+        learning_rate_factor=args.learning_rate_factor,
+        rng_seed=args.rng_seed,
+        regime_probabilities_csv_file=args.regime_probabilities_csv_file,
+        theta_trace_csv_file=args.theta_trace_csv_file,
+        p_csv_file=args.p_csv_file,
+        omega_csv_file=args.omega_csv_file,
+        kappa_csv_file=args.kappa_csv_file,
+        theta_file=args.theta_file,
+        progress_every=args.progress_every,
+    )
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.verb == "estimate_parameters_and_regimes":
+        return _estimate_parameters_and_regimes(args)
     if args.verb == "infer":
         from hygeia_tpu_torch.two_group.runner import infer_segment
 

@@ -15,14 +15,32 @@
 //   5. the post-resampling log-weights (kept: previous weight; resampled:
 //      -log c; fallback: -log M) and the top-M indices.
 //
-// What bounds it on an H100: not bandwidth (a unit's weights are ~10 KB)
-// but latency: a chain of M+1 dependent block-wide argmax reductions, then
-// a scan and a count, each separated by __syncthreads. The design keeps the
-// whole unit in shared memory, launches one block per unit so that one
-// launch serves every seed at a site, and shortens each argmax round: every
-// thread caches the best of the elements it owns, so a round is one warp
-// shuffle reduction, one exchange through shared memory and a rescan of
-// ~N/256 elements by the single thread that owned the winner.
+// Shapes: any M >= 1 with M + 1 <= 1024, and N up to what the block's
+// dynamic shared memory holds (9 bytes a weight plus 12 a top slot, and
+// 8 bytes a padded key on the sort path) within the H100's 227 KB opt-in
+// limit: ~25,000 weights. ops/cuda_resampling.py::supports is the same
+// bound in Python, and the launcher refuses what exceeds it.
+//
+// What bounds it on an H100: not bandwidth (a unit's weights are at most
+// ~225 KB, read once) but latency: the chain of dependent block-wide steps
+// (the top-(M+1) selection, a scan and a count), each separated by
+// __syncthreads. The whole unit stays in shared memory, and one block per
+// unit lets one launch serve every unit of a site. Two ways to the
+// top-(M+1), chosen per launch by N:
+//
+//   * N <= 2048 (the single-group engine: M + 1 = 245 of N = 250): a
+//     block-wide bitonic sort of (value, index) keys padded to a power of
+//     two, log2(P)(log2(P)+1)/2 barrier stages (36 at P = 256). M + 1
+//     dependent argmax rounds would be 245 barriers there.
+//   * larger N (two-group INFER: M = 50 of N = 2400): M + 1 argmax rounds
+//     over cached per-thread bests. Every thread keeps the best of the
+//     elements it owns, so a round is one warp shuffle reduction, one
+//     exchange through shared memory and a rescan of ~N/256 elements by the
+//     thread that owned the winner. M + 1 is small there, and a sort of
+//     4096 or more keys would not fit the sort path's budget.
+//
+// Both orders are the same strict total order (value descending, index
+// ascending), so both give lax.top_k's exact top set and order.
 //
 // Offspring are selected by comparison counts (#{i: q_i < t}), as the JAX
 // code does, and not by binary search: a blocked parallel scan rounds at
@@ -40,7 +58,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSlots = 128;  // M + 1 must fit
+constexpr int kMaxSlots = 1024;  // M + 1 must fit
+constexpr int kMaxSortKeys = 2048;  // the sort path's padded key count
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ bool better(float v, int i, float v2, int i2) {
@@ -122,19 +141,49 @@ __device__ __forceinline__ int warp_count(const float* q, int N, float t, bool s
   return warp_sum_int(c);
 }
 
+// Sorts (v, i) keys in shared memory into descending order by better().
+// P is a power of two; every thread of the block takes part.
+__device__ void block_bitonic_sort(float* v, int* idx, int P) {
+  for (int k = 2; k <= P; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < P; i += kThreads) {
+        const int l = i ^ j;
+        if (l > i) {
+          const float a = v[i], b = v[l];
+          const int ia = idx[i], ib = idx[l];
+          // In a segment sorted descending, position i gets the better key.
+          const bool swap = (i & k) == 0 ? better(b, ib, a, ia) : better(a, ia, b, ib);
+          if (swap) {
+            v[i] = b;
+            v[l] = a;
+            idx[i] = ib;
+            idx[l] = ia;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads) optimal_resampling_kernel(
     const float* __restrict__ lw, const float* __restrict__ u_sys,
-    const float* __restrict__ u_mult, int N, int M, int* __restrict__ parents,
-    float* __restrict__ new_w, int* __restrict__ top_idx_out,
-    float* __restrict__ log_c_out, unsigned char* __restrict__ bad_out) {
+    const float* __restrict__ u_mult, int N, int M, int n_sort,
+    int* __restrict__ parents, float* __restrict__ new_w,
+    int* __restrict__ top_idx_out, float* __restrict__ log_c_out,
+    unsigned char* __restrict__ bad_out) {
+  const int kk = min(M + 1, N);
+  // Dynamic shared memory: the 4-byte arrays first, the flag bytes last.
   extern __shared__ float smem[];
-  float* w = smem;                                            // N log-weights
-  float* q = smem + N;                                        // N prefix sums
-  unsigned char* taken = reinterpret_cast<unsigned char*>(smem + 2 * N);  // N
+  float* w = smem;                                  // N log-weights
+  float* q = w + N;                                 // N prefix sums
+  float* s_top_lw = q + N;                          // kk
+  float* s_log_c_k = s_top_lw + kk;                 // kk
+  int* s_top_idx = reinterpret_cast<int*>(s_log_c_k + kk);  // kk
+  float* sort_v = reinterpret_cast<float*>(s_top_idx + kk);  // n_sort
+  int* sort_i = reinterpret_cast<int*>(sort_v + n_sort);     // n_sort
+  unsigned char* taken = reinterpret_cast<unsigned char*>(sort_i + n_sort);  // N
 
-  __shared__ float s_top_lw[kSlots];
-  __shared__ int s_top_idx[kSlots];
-  __shared__ float s_log_c_k[kSlots];
   __shared__ float s_red_v[2][kWarps];
   __shared__ int s_red_i[2][kWarps];
   __shared__ float s_scratch[kWarps];
@@ -142,7 +191,6 @@ __global__ void __launch_bounds__(kThreads) optimal_resampling_kernel(
 
   const int unit = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int kk = min(M + 1, N);
   const float* row = lw + (size_t)unit * N;
 
   for (int i = tid; i < N; i += kThreads) {
@@ -150,44 +198,61 @@ __global__ void __launch_bounds__(kThreads) optimal_resampling_kernel(
     taken[i] = 0;
   }
   if (tid == 0) s_k_star = INT_MAX;
-  __syncthreads();
 
-  // ---- 1. exact top-kk: kk argmax rounds over cached per-thread bests ----
-  float best_v = -INFINITY;
-  int best_i = INT_MAX;
-  for (int i = tid; i < N; i += kThreads)
-    if (better(w[i], i, best_v, best_i)) {
-      best_v = w[i];
-      best_i = i;
-    }
-  for (int k = 0; k < kk; ++k) {
-    float v = best_v;
-    int i = best_i;
-    warp_argmax(v, i);
-    const int buf = k & 1;  // double buffer: one barrier per round
-    if (lane == 0) {
-      s_red_v[buf][warp] = v;
-      s_red_i[buf][warp] = i;
+  // ---- 1. exact top-kk -----------------------------------------------------
+  if (n_sort > 0) {
+    // Sort path: pad with (-inf, INT_MAX), which ranks below every real
+    // weight (a real -inf has a smaller index), sort, take the first kk.
+    for (int i = tid; i < n_sort; i += kThreads) {
+      sort_v[i] = i < N ? row[i] : -INFINITY;
+      sort_i[i] = i < N ? i : INT_MAX;
     }
     __syncthreads();
-    v = lane < kWarps ? s_red_v[buf][lane] : -INFINITY;
-    i = lane < kWarps ? s_red_i[buf][lane] : INT_MAX;
-    warp_argmax(v, i);
-    // i == INT_MAX only if every remaining weight is NaN, which the caller
-    // excludes; keep the index in bounds all the same.
-    if (tid == 0) {
-      s_top_lw[k] = v;
-      s_top_idx[k] = i < N ? i : 0;
+    block_bitonic_sort(sort_v, sort_i, n_sort);
+    for (int k = tid; k < kk; k += kThreads) {
+      s_top_lw[k] = sort_v[k];
+      s_top_idx[k] = sort_i[k];
+      taken[sort_i[k]] = 1;
     }
-    if (i < N && i % kThreads == tid) {  // the winner's owner rescans its elements
-      taken[i] = 1;
-      best_v = -INFINITY;
-      best_i = INT_MAX;
-      for (int j = tid; j < N; j += kThreads)
-        if (!taken[j] && better(w[j], j, best_v, best_i)) {
-          best_v = w[j];
-          best_i = j;
-        }
+  } else {
+    // Argmax path: kk rounds over cached per-thread bests.
+    __syncthreads();
+    float best_v = -INFINITY;
+    int best_i = INT_MAX;
+    for (int i = tid; i < N; i += kThreads)
+      if (better(w[i], i, best_v, best_i)) {
+        best_v = w[i];
+        best_i = i;
+      }
+    for (int k = 0; k < kk; ++k) {
+      float v = best_v;
+      int i = best_i;
+      warp_argmax(v, i);
+      const int buf = k & 1;  // double buffer: one barrier per round
+      if (lane == 0) {
+        s_red_v[buf][warp] = v;
+        s_red_i[buf][warp] = i;
+      }
+      __syncthreads();
+      v = lane < kWarps ? s_red_v[buf][lane] : -INFINITY;
+      i = lane < kWarps ? s_red_i[buf][lane] : INT_MAX;
+      warp_argmax(v, i);
+      // i == INT_MAX only if every remaining weight is NaN, which the caller
+      // excludes; keep the index in bounds all the same.
+      if (tid == 0) {
+        s_top_lw[k] = v;
+        s_top_idx[k] = i < N ? i : 0;
+      }
+      if (i < N && i % kThreads == tid) {  // the winner's owner rescans its elements
+        taken[i] = 1;
+        best_v = -INFINITY;
+        best_i = INT_MAX;
+        for (int j = tid; j < N; j += kThreads)
+          if (!taken[j] && better(w[j], j, best_v, best_i)) {
+            best_v = w[j];
+            best_i = j;
+          }
+      }
     }
   }
   __syncthreads();
@@ -207,8 +272,7 @@ __global__ void __launch_bounds__(kThreads) optimal_resampling_kernel(
     }
   }
   __syncthreads();
-  if (tid < kk) {
-    const int k = tid;
+  for (int k = tid; k < kk; k += kThreads) {
     const float log_c_k = logf(fmaxf((float)(M - k), 0.f)) - logf(s_log_c_k[k]);
     const bool below = log_c_k + s_top_lw[k] <= 0.f;
     const float prev = k == 0 ? INFINITY : s_top_lw[k - 1];
@@ -267,18 +331,41 @@ __global__ void __launch_bounds__(kThreads) optimal_resampling_kernel(
 
 extern "C" {
 
-// Launches on `stream`; returns cudaGetLastError() (0 when the launch was
-// accepted). The caller checks shapes: M + 1 <= 128 and the dynamic shared
-// memory 9 N bytes within the 48 KB a block gets without opting in.
+// Dynamic shared memory of a launch, in bytes: see the kernel's layout.
+static size_t smem_bytes(int N, int M, int n_sort) {
+  const int kk = M + 1 < N ? M + 1 : N;
+  return (size_t)N * (2 * sizeof(float) + 1) + (size_t)kk * 3 * sizeof(float) +
+         (size_t)n_sort * (sizeof(float) + sizeof(int));
+}
+
+// Padded key count of the sort path: the next power of two >= N when that
+// is at most kMaxSortKeys, else 0 (the argmax path).
+static int sort_keys(int N) {
+  int p = 2;
+  while (p < N) p <<= 1;
+  return p <= kMaxSortKeys ? p : 0;
+}
+
+// Launches on `stream`; returns a CUDA error code (0 when the launch was
+// accepted). The caller checks shapes (ops/cuda_resampling.py::supports);
+// this refuses M + 1 > 1024 and shared memory beyond the device's opt-in
+// limit all the same.
 int hygeia_optimal_resampling(const float* lw, const float* u_sys,
                               const float* u_mult, int U, int N, int M,
                               int* parents, float* new_w, int* top_idx,
                               float* log_c, unsigned char* bad, void* stream) {
-  if (U > 0) {
-    const size_t smem = (size_t)N * (2 * sizeof(float) + 1);
-    optimal_resampling_kernel<<<U, kThreads, smem, (cudaStream_t)stream>>>(
-        lw, u_sys, u_mult, N, M, parents, new_w, top_idx, log_c, bad);
+  if (U <= 0) return 0;
+  if (M < 1 || M + 1 > kMaxSlots || N < 1) return (int)cudaErrorInvalidValue;
+  const int n_sort = sort_keys(N);
+  const size_t smem = smem_bytes(N, M, n_sort);
+  if (smem > 48 * 1024) {
+    // Above 48 KB a block gets dynamic shared memory only after opting in.
+    const cudaError_t e = cudaFuncSetAttribute(
+        optimal_resampling_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
   }
+  optimal_resampling_kernel<<<U, kThreads, smem, (cudaStream_t)stream>>>(
+      lw, u_sys, u_mult, N, M, n_sort, parents, new_w, top_idx, log_c, bad);
   return (int)cudaGetLastError();
 }
 

@@ -20,13 +20,43 @@ import torch
 from hygeia_tpu_torch.ops import resampling as plain
 from hygeia_tpu_torch.ops.resampling import ResampleResult
 
-SLOTS = 128  # kSlots in the kernel: M + 1 must fit
-# Dynamic shared memory per block: N f32 weights, N f32 prefix sums and N
-# flag bytes, within the 48 KB a block gets without an opt-in (the kernel's
-# static shared arrays take ~2 KB of it).
-_SMEM_BYTES_PER_PARTICLE = 9
-_MAX_DYNAMIC_SMEM = 46 * 1024
-MAX_N = _MAX_DYNAMIC_SMEM // _SMEM_BYTES_PER_PARTICLE
+MAX_SLOTS = 1024  # kMaxSlots in the kernel: M + 1 must fit
+MAX_SORT_KEYS = 2048  # kMaxSortKeys: the top-(M+1) is a sort up to here
+# The dynamic shared memory a block may opt in to on an H100 (sm_90:
+# 227 KB, cudaDevAttrMaxSharedMemoryPerBlockOptin), less 1 KB for the
+# kernel's static shared arrays (~170 B).
+SMEM_BUDGET = 227 * 1024 - 1024
+
+
+def _sort_keys(n):
+    """Padded key count of the kernel's sort path (0: the argmax path)."""
+    p = 2
+    while p < n:
+        p *= 2
+    return p if p <= MAX_SORT_KEYS else 0
+
+
+def smem_bytes(n, m):
+    """Dynamic shared memory of one block, as the kernel lays it out: N
+    weights, N prefix sums and N flag bytes; three (M+1)-slot arrays; the
+    sort path's padded (value, index) keys."""
+    kk = min(m + 1, n)
+    return 9 * n + 12 * kk + 8 * _sort_keys(n)
+
+
+def supports(n, m):
+    """None when the kernel takes N weights and M offspring, else the bound
+    that refuses them. Needs no card."""
+    if m < 1 or m + 1 > MAX_SLOTS:
+        return f"the CUDA resampler needs 1 <= M and M + 1 <= {MAX_SLOTS}, got M={m}"
+    if n < 1:
+        return f"the CUDA resampler needs N >= 1, got N={n}"
+    if smem_bytes(n, m) > SMEM_BUDGET:
+        return (
+            f"the CUDA resampler keeps a unit in shared memory: N={n}, M={m} needs "
+            f"{smem_bytes(n, m)} bytes, more than the {SMEM_BUDGET} an H100 block may opt in to"
+        )
+    return None
 
 
 class _Kernel:
@@ -70,7 +100,8 @@ def optimal_resampling_cuda(log_weights, num_offspring, u_sys, u_mult) -> Resamp
     """Launch the CUDA kernel on the current stream; no synchronisation.
 
     log_weights (U, N) f32, each row normalised (logsumexp 0) and NaN-free;
-    u_sys (U,) f32; u_mult (U, M) f32. Raises where the kernel cannot go."""
+    u_sys (U,) f32; u_mult (U, M) f32. Raises where the kernel cannot go
+    (``supports``)."""
     if log_weights.device.type != "cuda":
         raise ValueError(
             f"the CUDA resampler needs CUDA tensors, got {log_weights.device}"
@@ -80,10 +111,9 @@ def optimal_resampling_cuda(log_weights, num_offspring, u_sys, u_mult) -> Resamp
     U, N = log_weights.shape
     M = int(num_offspring)
     dev = log_weights.device
-    if M < 1 or M + 1 > SLOTS:
-        raise ValueError(f"the CUDA resampler needs 1 <= M and M + 1 <= {SLOTS}, got M={M}")
-    if N > MAX_N:
-        raise ValueError(f"the CUDA resampler keeps N <= {MAX_N} weights in shared memory, got N={N}")
+    refused = supports(N, M)
+    if refused:
+        raise ValueError(refused)
     _check("log_weights", log_weights, (U, N), torch.float32, dev)
     _check("u_sys", u_sys, (U,), torch.float32, dev)
     _check("u_mult", u_mult, (U, M), torch.float32, dev)

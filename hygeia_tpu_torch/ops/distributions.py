@@ -1,4 +1,4 @@
-"""Elementary log-densities for the two-group model, on tensors.
+"""Elementary log-densities and the transition-matrix packing, on tensors.
 
 Counterpart of hygeia_tpu/ops/distributions.py; the same formulas with
 ``torch.lgamma`` in place of ``gammaln``. All functions broadcast.
@@ -61,3 +61,18 @@ def neg_binomial_log_pmf(x, size, prob):
     )
     lp = torch.where(prob == 0.0, torch.where(x == 0.0, 0.0, _NEG_INF), lp)
     return torch.where(x >= 0, lp, _NEG_INF)
+
+
+def row_softmax_offdiag(theta_p, n_regimes):
+    """The (R, R) transition matrix P from the R(R-1) packed off-diagonal
+    softmax parameters (row-major); leading axes are batch axes.
+
+    Row r of P is the softmax of its R-1 off-diagonal entries; the diagonal
+    is 0."""
+    R = n_regimes
+    rows = torch.softmax(theta_p.reshape(*theta_p.shape[:-1], R, R - 1), dim=-1)
+    cols = torch.tensor(
+        [[c for c in range(R) if c != r] for r in range(R)], device=theta_p.device
+    )
+    P = torch.zeros((*rows.shape[:-1], R), dtype=rows.dtype, device=rows.device)
+    return P.scatter_(-1, cols.expand(rows.shape), rows)

@@ -1,5 +1,6 @@
-"""The port's CUDA kernel on the card: the optimal resampler against its
-plain PyTorch version on the same tensors and uniforms.
+"""The port on the card: the optimal-resampler kernel against its plain
+PyTorch version on the same tensors and uniforms, the single-group hazard
+tables against the CPU's, and the paths that go through the kernel.
 
 Marked ``cuda``; skipped where there is no CUDA device. On the machine with
 the GPU (no JAX there, so without the repo's conftest):
@@ -7,7 +8,8 @@ the GPU (no JAX there, so without the repo's conftest):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: parents, top-M indices and fallback flags equal; log_c and the
-new weights rtol 1e-5 (f32 sums taken in another order).
+new weights rtol 1e-5 (f32 sums taken in another order); hazard tables
+bit-identical (they are built from exactly rounded operations only).
 """
 
 import numpy as np
@@ -34,7 +36,10 @@ def _weights(rng, U, N, scale, device, dead=0.2):
     return (t - torch.logsumexp(t, dim=-1, keepdim=True)).contiguous()
 
 
-@pytest.mark.parametrize("U,N,M", [(32, 2400, 50), (1, 2400, 50), (3, 240, 5), (5, 1000, 127), (2, 100, 127), (1, 2400, 1)])
+@pytest.mark.parametrize("U,N,M", [
+    (32, 2400, 50), (1, 2400, 50), (3, 240, 5), (5, 1000, 127), (2, 100, 127), (1, 2400, 1),
+    (1, 250, 244), (8, 250, 244), (2, 7200, 150), (1, 2049, 1000),
+])
 def test_kernel_matches_plain(device, U, N, M):
     rng = np.random.default_rng(N + M)
     g = torch.Generator(device=device).manual_seed(0)
@@ -51,6 +56,29 @@ def test_kernel_matches_plain(device, U, N, M):
         torch.testing.assert_close(got.new_log_weights, want.new_log_weights, rtol=1e-5, atol=1e-6)
 
 
+def test_kernel_at_the_shared_memory_bound(device):
+    """N = 24,000 weights (~220 KB of shared memory), M = 500. Selection of
+    the resampled offspring compares grid points against f32 prefix sums
+    over 24,000 weights, which the kernel and torch.cumsum round in other
+    orders: a grid point within that rounding of a boundary may pick the
+    neighbour, so parents must agree on 99% of the slots, the rest exactly."""
+    rng = np.random.default_rng(7)
+    g = torch.Generator(device=device).manual_seed(0)
+    U, N, M = 2, 24000, 500
+    assert cr.supports(N, M) is None
+    for trial in range(2):
+        lw = _weights(rng, U, N, 1.0 + 2 * trial, device)
+        us = torch.rand((U,), generator=g, device=device)
+        um = torch.rand((U, M), generator=g, device=device)
+        got = cr.optimal_resampling(lw, M, us, um)
+        want = plain.optimal_finite_state_resampling(lw, M, us, um)
+        assert torch.equal(got.use_unbiased, want.use_unbiased)
+        assert torch.equal(got.top_m_indices, want.top_m_indices)
+        torch.testing.assert_close(got.log_c, want.log_c, rtol=1e-5, atol=1e-6)
+        same = (got.parent_indices == want.parent_indices).double().mean().item()
+        assert same >= 0.99, same
+
+
 def test_kernel_counts_launches_and_rejects_what_it_cannot_take(device):
     lw = _weights(np.random.default_rng(0), 2, 240, 1.0, device)
     us, um = torch.rand(2, device=device), torch.rand(2, 5, device=device)
@@ -58,10 +86,10 @@ def test_kernel_counts_launches_and_rejects_what_it_cannot_take(device):
     cr.optimal_resampling(lw, 5, us, um)
     assert cr.KERNEL.launches == before + 1
     with pytest.raises(ValueError, match="M \\+ 1"):
-        cr.optimal_resampling(lw, 128, us, torch.rand(2, 128, device=device))
+        cr.optimal_resampling(lw, 1024, us, torch.rand(2, 1024, device=device))
     with pytest.raises(TypeError):
         cr.optimal_resampling(lw.double(), 5, us, um)
-    big = torch.zeros((1, cr.MAX_N + 1), device=device)
+    big = torch.zeros((1, 26000), device=device)
     with pytest.raises(ValueError, match="shared memory"):
         cr.optimal_resampling(big, 5, us[:1], um[:1])
     with pytest.raises(ValueError, match="contiguous"):
@@ -90,3 +118,45 @@ def test_filter_on_the_card_goes_through_the_kernel(device):
     assert cr.KERNEL.launches - before == T - 1
     assert bool(torch.isfinite(res.log_normalizing_constant).all())
     assert int(res.degenerate_steps.sum()) == 0
+
+
+@pytest.mark.parametrize("kappa_fixed", [True, False])
+def test_hazard_tables_bit_identical_to_the_cpu(device, kappa_fixed):
+    from hygeia_tpu_torch.single_group.model import build_tables, make_model
+
+    R = 6
+    theta = np.random.default_rng(3).normal(size=R * R + (0 if kappa_fixed else R))
+    got = {}
+    for dev in (torch.device("cpu"), device):
+        model = make_model([0.99, 0.01, 0.8, 0.2, 0.5, 0.5], [0.05, 0.05, 0.2, 0.2, 0.2, 0.2886751],
+                           2, np.full(R, 2.0), kappa_fixed=kappa_fixed, d_max=4096, device=dev)
+        got[dev.type] = build_tables(model, torch.tensor(theta, dtype=torch.float32, device=dev))
+    for name in ("rho", "exit_status", "grad_omega_log_rho", "grad_kappa_log_rho"):
+        assert torch.equal(getattr(got["cpu"], name), getattr(got["cuda"], name).cpu()), name
+
+
+def test_single_group_engine_on_the_card_goes_through_the_kernel(device):
+    from hygeia_tpu_torch.ops.emissions import emission_log_prob_table
+    from hygeia_tpu_torch.single_group.engine import EngineConfig, run_online_combined_inference
+    from hygeia_tpu_torch.single_group.model import make_model, parameters_to_theta
+
+    R, T = 6, 500
+    rng = np.random.default_rng(2)
+    model = make_model([0.99, 0.01, 0.8, 0.2, 0.5, 0.5], [0.05, 0.05, 0.2, 0.2, 0.2, 0.2886751],
+                       2, np.full(R, 2.0), device=device)
+    p = np.full((R, R), 1.0 / (R - 1))
+    np.fill_diagonal(p, 0.0)
+    theta = parameters_to_theta(p, [0.995, 0.975, 0.95, 0.925, 0.9, 0.9])
+    n = rng.poisson(20, size=(T, 2))
+    y = rng.binomial(n, np.repeat(rng.uniform(0, 1, T // 50), 50)[:, None])
+    E = emission_log_prob_table(y, n, model.alpha, model.beta)
+    cfg = EngineConfig(estimate_parameters=True, steps_per_update=50)
+    before = cr.KERNEL.launches
+    res = run_online_combined_inference(
+        model, theta, E, cfg, n_units=2, generator=torch.Generator(device=device).manual_seed(0)
+    )
+    assert cr.KERNEL.launches - before >= T - 1
+    assert bool(torch.isfinite(res.log_normalizing_constant).all())
+    assert bool(torch.isfinite(res.theta_trace).all())
+    assert bool(res.regime_valid.all())
+    torch.testing.assert_close(res.regime_probs.sum(-1), torch.ones((2, T), device=device), atol=1e-4, rtol=0)

@@ -217,3 +217,28 @@ def test_unported_options_raise(runs, tmp_path, flag):
             "infer", "--data_dir", str(runs["data"]), "--single_group_dir", str(runs["sg"]),
             "--results_dir", str(tmp_path), "--chrom", "t", "--device", "cpu", *flag,
         ])
+
+
+def test_headed_csv_io_reads_and_writes_like_pandas(tmp_path):
+    """The single-group engine's headed CSVs: the port's writers read back
+    by hygeia_tpu.utils.io (pandas) and the other way round, plain and
+    gzipped."""
+    rng = np.random.default_rng(4)
+    counts = rng.integers(0, 60, size=(2, 30))
+    for suffix in (".csv", ".csv.gz"):
+        tio.write_headed_matrix(tmp_path / f"t{suffix}", counts, "sample")
+        np.testing.assert_array_equal(hio.read_headed_matrix(tmp_path / f"t{suffix}"), counts)
+        hio.write_headed_matrix(tmp_path / f"j{suffix}", counts, "sample")
+        np.testing.assert_array_equal(tio.read_headed_matrix(tmp_path / f"j{suffix}"), counts)
+    probs = rng.dirichlet(np.ones(6), size=30).astype(np.float32)
+    tio.write_headed_table(tmp_path / "p.csv", probs, [f"regime_{i + 1}" for i in range(6)],
+                           first=("genomic_position", np.arange(30) * 7))
+    import pandas as pd
+
+    df = pd.read_csv(tmp_path / "p.csv")
+    assert list(df.columns) == ["genomic_position"] + [f"regime_{i + 1}" for i in range(6)]
+    np.testing.assert_array_equal(df["genomic_position"].to_numpy(), np.arange(30) * 7)
+    np.testing.assert_array_equal(df.iloc[:, 1:].to_numpy(np.float32), probs)
+    pos = rng.integers(1, 10**8, 30)
+    hio.write_headed_column(tmp_path / "pos.csv", pos, "genomic_positions")
+    np.testing.assert_array_equal(tio.read_headed_column(tmp_path / "pos.csv"), pos)

@@ -15,10 +15,12 @@ import torch
 import jax.numpy as jnp
 
 from hygeia_tpu.ops import distributions as jd
+from hygeia_tpu.ops import hazard as jh
 from hygeia_tpu.ops.emissions import emission_log_prob_table as j_emission
 from hygeia_tpu.ops.hazard import rho_two_group as j_rho
 from hygeia_tpu.two_group.model import make_params as j_make_params
 from hygeia_tpu_torch.ops import distributions as td
+from hygeia_tpu_torch.ops import hazard as th
 from hygeia_tpu_torch.ops.emissions import emission_log_prob_table as t_emission
 from hygeia_tpu_torch.ops.hazard import gather_rho, rho_two_group as t_rho
 from hygeia_tpu_torch.two_group.model import make_params as t_make_params
@@ -141,3 +143,70 @@ def test_gather_rho_clamps_sojourn_and_regime(dead_regime):
     got = gather_rho(table, d, r)
     assert got.tolist()[:3] == [8.0, 7.0, 3.0]
     assert got[3].item() == 0.0  # clamped to [0, 0]
+
+
+def test_row_softmax_offdiag_matches_jax_f64():
+    R = 6
+    theta = np.random.default_rng(4).normal(size=(3, R * (R - 1))) * 3
+    got = td.row_softmax_offdiag(_t(theta), R)
+    assert got.shape == (3, R, R)
+    for i in range(3):
+        want = np.asarray(jd.row_softmax_offdiag(jnp.asarray(theta[i]), R))
+        np.testing.assert_allclose(got[i].numpy(), want, rtol=1e-12, atol=1e-300)
+        assert np.all(np.diag(got[i].numpy()) == 0)
+
+
+@pytest.mark.parametrize("n", [1, 16, 17, 64, 100, 1000, 4096, 4097])
+def test_exclusive_cumsum_is_the_xla_cpu_order(n):
+    """Bit for bit JAX's f32 sum on the CPU: XLA's blocked base-16 scan."""
+    x = np.random.default_rng(n).exponential(size=(6, n)).astype(np.float32) * 1e-3
+    want = np.asarray(jh._exclusive_cumsum(jnp.asarray(x)))
+    got = th._exclusive_cumsum(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("u", [1, 2, 3])
+def test_hazard_table_matches_jax_f64(u):
+    """(rho, exit_status) at depth 32, where the survival stays far from 0
+    (see test_torch_single_group.py): rho rtol 1e-12, the latch equal."""
+    rng = np.random.default_rng(u)
+    kappa, omega = rng.uniform(1.5, 3.0, 4), rng.uniform(0.85, 0.99, 4)
+    want_rho, want_exit = jh.hazard_table(jnp.asarray(kappa), jnp.asarray(omega), u, 32)
+    got_rho, got_exit = th.hazard_table(_t(kappa), _t(omega), u, 32)
+    assert got_rho.dtype == F64
+    np.testing.assert_array_equal(got_exit.numpy(), np.asarray(want_exit))
+    np.testing.assert_allclose(got_rho.numpy(), np.asarray(want_rho), rtol=1e-12, atol=1e-300)
+
+
+def test_exclusive_cumsum_reproduces_the_jax_latch_from_jax_addends():
+    """Given JAX's own f32 pmf at the CLI defaults (kappa 2, u 2, omega as
+    given, d_max 4096), the port's sum latches where JAX's does: 3728 and
+    736, none in the other four regimes. (The port's own addends differ:
+    ROADMAP.md section 3.)"""
+    omega = np.array([0.995, 0.975, 0.95, 0.925, 0.9, 0.9], np.float32)
+    d = jnp.arange(1, 4097, dtype=jnp.float32)[None, :]
+    k, o = jnp.full((6, 1), 2.0, jnp.float32), jnp.asarray(omega)[:, None]
+    little_h = jnp.where(d >= 2, jnp.exp(jd.neg_binomial_log_pmf(jnp.maximum(d - 2, 0.0), k, o)), 0.0)
+    got = th._exclusive_cumsum(torch.from_numpy(np.asarray(little_h))).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jh._exclusive_cumsum(little_h)))
+    latched = got >= 1.0
+    onsets = [int(r.argmax()) if r.any() else -1 for r in latched]
+    assert onsets == [3728, 736, -1, -1, -1, -1]
+
+
+def test_ieee_elementary_functions_match_libm():
+    """_exp64, _log64 and _log1p64 (built from exactly rounded operations,
+    so every device gives the same bits) within 2 ulp of numpy's libm, with
+    its special values."""
+    rng = np.random.default_rng(0)
+    x = np.concatenate([rng.normal(size=20000) * 300, [0.0, -0.0, 709.7, -745.0, -750.0, 710.0]])
+    got = th._exp64(_t(x)).numpy()
+    np.testing.assert_allclose(got, np.exp(x), rtol=4.5e-16, atol=0)
+    y = np.concatenate([np.exp(rng.normal(size=20000) * 200), [5e-324, 2.2e-308, 1.0, 2.0, 1e308]])
+    np.testing.assert_allclose(th._log64(_t(y)).numpy(), np.log(y), rtol=4.5e-16, atol=1e-300)
+    z = np.concatenate([rng.uniform(-0.999, 5, 20000), 10.0 ** rng.uniform(-300, -1, 2000), [0.0, -0.5]])
+    np.testing.assert_allclose(th._log1p64(_t(z)).numpy(), np.log1p(z), rtol=4.5e-16, atol=0)
+    assert th._log64(_t([0.0, 1.0, np.inf])).tolist() == [-np.inf, 0.0, np.inf]
+    assert np.isnan(th._log64(_t([-1.0, np.nan])).numpy()).all()
+    assert th._exp64(_t([-np.inf, np.inf])).tolist() == [0.0, np.inf]
+    assert th._log1p64(_t([-1.0])).tolist() == [-np.inf]

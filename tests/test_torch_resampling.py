@@ -12,7 +12,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from hygeia_tpu.ops.pallas_resampling import optimal_finite_state_resampling_pallas
+from hygeia_tpu.ops.pallas_resampling import _SLOTS as PALLAS_SLOTS, optimal_finite_state_resampling_pallas
 from hygeia_tpu.ops import resampling as jres
 from hygeia_tpu_torch.ops import resampling as tres
 from hygeia_tpu_torch.ops import cuda_resampling
@@ -74,7 +74,7 @@ def test_optimal_resampler_matches_jax(reference):
     trials = 8
     lwn = _gumbel_weights(0, trials)
     keys = [jax.random.PRNGKey(t) for t in range(trials)]
-    n_mult = None if reference == "xla" else cuda_resampling.SLOTS
+    n_mult = None if reference == "xla" else PALLAS_SLOTS
     draws = [_uniforms(k, M, n_mult) for k in keys]
     got = _port(lwn, [d[0] for d in draws], np.stack([d[1] for d in draws]))
     for t in range(trials):
@@ -178,3 +178,41 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         build.build_library()
     assert not (tmp_path / "_build").exists()
+
+
+def test_supports_names_the_bound_without_a_card():
+    """The kernel's shape bound, checked in Python: M + 1 <= 1024 and one
+    unit within an H100 block's opt-in shared memory."""
+    for n, m in ((250, 244), (7200, 150), (2400, 50), (24000, 500), (100, 127)):
+        assert cuda_resampling.supports(n, m) is None, (n, m)
+    assert "M + 1 <= 1024" in cuda_resampling.supports(2400, 1024)
+    assert "M + 1 <= 1024" in cuda_resampling.supports(2400, 0)
+    assert "shared memory" in cuda_resampling.supports(26000, 50)
+    assert "shared memory" in cuda_resampling.supports(48 * 600, 600)  # two-group M=600
+    assert cuda_resampling.smem_bytes(250, 244) == 9 * 250 + 12 * 245 + 8 * 256
+
+
+def test_optimal_resampler_matches_jax_at_the_engine_shape():
+    """N = 250 weights, M_cap = 244 offspring (the single-group engine at
+    the CLI default): growth-phase weights (the first 6(t+1) slots live)
+    and at-capacity Gumbel weights, each unit against the JAX function."""
+    n, m = 250, 244
+    rng = np.random.default_rng(8)
+    rows = []
+    for t in (1, 20, 40):
+        lw = np.full(n, -np.inf, np.float32)
+        lw[: 6 * (t + 1)] = rng.gumbel(size=6 * (t + 1))
+        rows.append(_norm(lw))
+    for trial in range(5):
+        rows.append(_norm(rng.gumbel(size=n).astype(np.float32) * (1.0 + trial)))
+    lwn = np.stack(rows)
+    keys = [jax.random.PRNGKey(40 + i) for i in range(len(rows))]
+    draws = [_uniforms(k, m) for k in keys]
+    got = tres.optimal_finite_state_resampling(
+        torch.from_numpy(lwn), m, torch.tensor([d[0] for d in draws], dtype=torch.float32),
+        torch.from_numpy(np.stack([d[1] for d in draws])),
+    )
+    for i, key in enumerate(keys):
+        ref = jres.optimal_finite_state_resampling(key, jnp.asarray(lwn[i]), m, normalized=True)
+        _assert_matches(got, ref, i, f"row {i}")
+    assert bool(got.use_unbiased[0]) and not bool(got.use_unbiased[-1])
