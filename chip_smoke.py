@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch port (hygeia_tpu_torch) on one CUDA GPU.
 
     python3 chip_smoke.py                                       # the full check
+    python3 chip_smoke.py --sites 50000                         # infer's segment as long as it has been
     python3 chip_smoke.py --chrom_sites 3300 --sites 3000 --buffer 300  # a quick look
 
 Phases, each of which raises (exit code non-zero) when it fails:
@@ -18,8 +19,14 @@ Phases, each of which raises (exit code non-zero) when it fails:
      growth-phase weights (the first 6(t+1) slots live, t = 1, 20, 40), 8
      trials of Gumbel weights, an exact ties case;
    - two-group M=150 (N=7200), past the old 128-slot bound;
-   then timed with CUDA events over 100 calls at U=1 for both main shapes
-   and at U=32 for the two-group one;
+   then timed at U=1 for both main shapes, at U=32 for the two-group one
+   and at N=7200, M=150: per call through the wrapper (CUDA events over 100
+   calls, beside the plain version), the card's time per launch (launches
+   into preallocated outputs through the C entry, queued behind a spin on
+   the card), the wrapper's host time per enqueue (1,000 calls, no
+   synchronisation), an empty launch through the same interface, the
+   bandwidth bound of the shape, and torch.topk(lw, M + 1) as the
+   yardstick of the first stage alone;
 4. the single-group hazard tables (``build_tables`` at the CLI defaults,
    kappa fixed and free) on the card and on the CPU: bit-identical f32
    rho, exit latch and gradient tables; the latch onsets are printed;
@@ -33,9 +40,11 @@ Phases, each of which raises (exit code non-zero) when it fails:
    launch count and the planted high and low methylation stretches; its
    theta file is the one the next phase reads;
 7. ``hygeia_tpu_torch.cli infer`` on the estimated theta, batch 0 of the
-   chromosome (segment 50,000 + halo 5,000, M=50 -> N=2400, B=25, f32;
-   the segment is cut from the production 100,000 to keep the whole check
-   near half its 1200 s limit), with checks on every output file, logZ,
+   chromosome (segment 30,000 + halo 5,000, M=50 -> N=2400, B=25, f32;
+   the segment is cut from the production 100,000, and from the 50,000 it
+   had while a host ran both site loops at 2.8-3.6 ms a site: at the
+   5.3-5.5 ms of a slower one the whole check took 920 s of its 1200),
+   with checks on every output file, logZ,
    the degenerate-step count, the kernel's launch count and the planted
    differentially methylated windows.
 
@@ -98,11 +107,11 @@ def _normalised_gumbel(rng, U, N, scale, dead_frac, device):
 
 def kernel_phase(device, seed=0):
     """Kernel against plain version at the two main paths' shapes and past
-    the old bounds. Returns (max_abs_err, {label: (kernel ms, plain ms)})."""
+    the old bounds. Returns (max_abs_err, {label: the shape's times})."""
     import numpy as np
     import torch
     from hygeia_tpu_torch.ops import resampling as plain
-    from hygeia_tpu_torch.ops.cuda_resampling import optimal_resampling_cuda
+    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL, optimal_resampling_cuda
 
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -192,32 +201,92 @@ def kernel_phase(device, seed=0):
         max_err = max(max_err, compare(lw, M_big, f"M=150 trial {trial}")[1])
     print(f"kernel vs plain: 4 Gumbel trials U=4 N={N_big} M={M_big}: equal")
 
+    def events_ms(fn, n, behind_spin):
+        """Milliseconds per call of fn by CUDA events over n calls. Behind a
+        spin on the card the calls queue up first, so the events time the
+        card and not the host that enqueues."""
+        for _ in range(10):
+            fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if behind_spin:
+            torch.cuda._sleep(20_000_000)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize(device)
+        return start.elapsed_time(end) / n
+
+    def host_us(fn, n=1000):
+        """Host microseconds per call of fn, no synchronisation in between."""
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize(device)
+        return 1e6 * dt / n
+
     def timed(units, N, M):
-        """(kernel ms, plain ms) per call, CUDA events over 100 calls,
-        in turns plain, kernel, kernel, plain; best of each pair."""
+        """The shape's times. ms, plain_ms: per call through the wrapper and
+        of the plain version, CUDA events over 100 calls, in turns plain,
+        kernel, kernel, plain, best of each pair. device_ms: per launch into
+        preallocated outputs through the C entry, behind a spin, best of 3.
+        enqueue_us: the wrapper's host time per call, best of 3. library_ms:
+        torch.topk(lw, M + 1), the first stage's yardstick. bound_ms: the
+        shape's bytes (every input read once, every output written once)
+        over 3.35 TB/s. The operations never set the bound: even at 24 a
+        weight they take 24 N / 67 TFLOP/s, less than the 4 N bytes of the
+        weights alone take at 3.35 TB/s."""
         lw = _normalised_gumbel(np.random.default_rng(seed + 2), units, N, 1.0, 0.2 if N > SG_N else 0.0, device)
         us, um = uniforms(units, M)
+        outs = (torch.empty((units, M), dtype=torch.int32, device=device),
+                torch.empty((units, M), dtype=torch.float32, device=device),
+                torch.empty((units, M), dtype=torch.int32, device=device),
+                torch.empty((units,), dtype=torch.float32, device=device),
+                torch.empty((units,), dtype=torch.bool, device=device))
+        raw_args = (lw.data_ptr(), us.data_ptr(), um.data_ptr(), units, N, M,
+                    *[o.data_ptr() for o in outs], torch.cuda.current_stream(device).cuda_stream)
+
+        def raw():
+            check(KERNEL.launch(*raw_args) == 0, "raw launch refused")
+
+        device_ms = min(events_ms(raw, 100, True) for _ in range(3))
+        enqueue_us = min(host_us(lambda: optimal_resampling_cuda(lw, M, us, um)) for _ in range(3))
+        library_ms = min(events_ms(lambda: torch.topk(lw, M + 1), 100, True) for _ in range(3))
+        n_bytes = units * (4 * N + 4 + 4 * M + 12 * M + 5)
         times = {}
         for name, fn in (("plain", plain.optimal_finite_state_resampling),
                          ("kernel", optimal_resampling_cuda),
                          ("kernel2", optimal_resampling_cuda),
                          ("plain2", plain.optimal_finite_state_resampling)):
-            for _ in range(10):
-                fn(lw, M, us, um)
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(100):
-                fn(lw, M, us, um)
-            end.record()
-            torch.cuda.synchronize(device)
-            times[name] = start.elapsed_time(end) / 100
-        k_ms = min(times["kernel"], times["kernel2"])
-        p_ms = min(times["plain"], times["plain2"])
-        print(f"resampler per call at U={units} N={N} M={M} (CUDA events, 100 calls, best of 2): "
-              f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-        return k_ms, p_ms
+            times[name] = events_ms(lambda: fn(lw, M, us, um), 100, False)
+        out = {
+            "ms": min(times["kernel"], times["kernel2"]),
+            "plain_ms": min(times["plain"], times["plain2"]),
+            "device_ms": device_ms, "enqueue_us": enqueue_us, "library_ms": library_ms,
+            "bytes": n_bytes, "bound_ms": 1e3 * n_bytes / 3.35e12, "bound_by": "bytes",
+        }
+        print(f"resampler at U={units} N={N} M={M}: per call through the wrapper {out['ms']:.4f} ms "
+              f"(plain {out['plain_ms']:.4f} ms; CUDA events, 100 calls, best of 2); on the card "
+              f"{1e3 * device_ms:.2f} us a launch; enqueue {enqueue_us:.2f} us of host time; "
+              f"bound {1e6 * out['bound_ms']:.1f} ns ({n_bytes} bytes, by {out['bound_by']}); "
+              f"torch.topk(lw, M + 1) alone {1e3 * library_ms:.2f} us")
+        return out
 
+    empty_args = (torch.cuda.current_stream(device).cuda_stream,)
+
+    def empty():
+        check(KERNEL.lib.hygeia_empty_launch(*empty_args) == 0, "empty launch refused")
+
+    floor = {"launch_floor_ms": min(events_ms(empty, 1000, True) for _ in range(3)),
+             "launch_floor_host_us": min(host_us(empty) for _ in range(3))}
+    print(f"an empty one-block launch through the same C interface: {1e3 * floor['launch_floor_ms']:.2f} us "
+          f"on the card, {floor['launch_floor_host_us']:.2f} us of host time")
     times = {
+        "floor": floor,
         "single_group": timed(1, N_sg, M_sg),
         "two_group": timed(1, N, M),
         "two_group_u32": timed(U, N, M),
@@ -376,7 +445,8 @@ def single_group_phase(device, root, regime):
     probs = tabs["regime_probs_1.csv"][:, 1:]
     check(bool(np.isfinite(probs).all()), "single group: non-finite regime probabilities")
     check(np.allclose(probs.sum(1), 1, atol=1e-4), "single group: regime probabilities do not sum to 1")
-    check(launches >= T - 1, f"single group: kernel launched {launches} times for T={T} sites")
+    # One launch a site resamples every unit; the first site resamples nothing.
+    check(launches == T - 1, f"single group: kernel launched {launches} times for T={T} sites")
     level = probs @ np.asarray(SG_MU)
     mu_true = np.asarray(MU)[regime]
     hi, lo = float(level[mu_true >= 0.8].mean()), float(level[mu_true <= 0.2].mean())
@@ -384,7 +454,7 @@ def single_group_phase(device, root, regime):
     stats = {
         "sites": T, "logZ": log_z, "wall_s": wall, "sites_per_s": T / wall,
         "ms_per_site": 1e3 * wall / T, "spill_count": spill,
-        "level_high": hi, "level_low": lo,
+        "level_high": hi, "level_low": lo, "launches_per_site": launches / (T - 1),
         "max_memory_allocated_bytes": (torch.cuda.max_memory_allocated(device)
                                        if device.type == "cuda" else None),
     }
@@ -451,7 +521,7 @@ def slice_phase(device, root, data_dir, sg_dir, dmr, segment_size, buffer_size, 
     t_b = ast.literal_eval(texts[f"optimal_time_backward_{seed}.txt"])[N]
     check(math.isfinite(log_z), f"logZ not finite: {log_z}")
     check(f"seed {seed}: degenerate_steps=0" in out.getvalue(), "degenerate filter steps")
-    check(launches >= T - 1, f"kernel launched {launches} times for T={T} sites")
+    check(launches == T - 1, f"kernel launched {launches} times for T={T} sites")
     split = arrays[f"optimal_split_probs_{N}_{seed}.npz"]
     regime = arrays[f"optimal_regime_probs_{N}_{seed}.npz"]
     check(bool(np.all(np.isfinite(split))) and bool(np.all(np.isfinite(regime))), "non-finite probabilities")
@@ -461,6 +531,7 @@ def slice_phase(device, root, data_dir, sg_dir, dmr, segment_size, buffer_size, 
     stats = {
         "sites": T, "logZ": log_z, "filter_s": t_f, "backward_s": t_b, "wall_s": wall,
         "sites_per_s": T / (t_f + t_b), "split_in_dmr": in_dmr, "split_outside": out_dmr,
+        "launches_per_site": launches / (T - 1),
         "max_memory_allocated_bytes": (torch.cuda.max_memory_allocated(device)
                                        if device.type == "cuda" else None),
     }
@@ -475,7 +546,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--chrom_sites", type=int, default=105_000,
                     help="CpGs of the chromosome, all read by the single-group engine (default 105000)")
-    ap.add_argument("--sites", type=int, default=50_000, help="infer's segment size (default 50000)")
+    ap.add_argument("--sites", type=int, default=30_000, help="infer's segment size (default 30000)")
     ap.add_argument("--buffer", type=int, default=5_000, help="infer's halo size (default 5000)")
     args = ap.parse_args(argv)
     if args.sites + args.buffer > args.chrom_sites:
@@ -521,7 +592,13 @@ def main(argv=None):
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    k_ms, p_ms = times["single_group"]
+    sg = times["single_group"]
+    shapes = {
+        "single_group": f"U=1 N={SG_N} M={SG_N - R} (single-group engine)",
+        "two_group": "U=1 N=2400 M=50 (one seed per infer call)",
+        "two_group_u32": "U=32 N=2400 M=50",
+        "two_group_m150": "U=1 N=7200 M=150",
+    }
     print(json.dumps({"kernels": [{
         "name": "optimal_resampling",
         "route": "cuda",
@@ -530,17 +607,23 @@ def main(argv=None):
         "launches": sg_launches + launches,
         "launches_single_group": sg_launches,
         "launches_two_group": launches,
+        # This run's counts over this run's resampling sites, per path.
+        "launches_per_site": {"single_group": sg_stats["launches_per_site"],
+                              "two_group": stats["launches_per_site"]},
         "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "shape": f"U=1 N={SG_N} M={SG_N - R} (single-group engine)",
-        "ms_two_group": times["two_group"][0],
-        "plain_ms_two_group": times["two_group"][1],
-        "shape_two_group": "U=1 N=2400 M=50 (one seed per infer call)",
-        "ms_u32": times["two_group_u32"][0],
-        "plain_ms_u32": times["two_group_u32"][1],
-        "ms_m150": times["two_group_m150"][0],
-        "plain_ms_m150": times["two_group_m150"][1],
+        # The top-level times are the single-group engine's shape.
+        "shape": shapes["single_group"],
+        "ms": sg["ms"],
+        "plain_ms": sg["plain_ms"],
+        "bound_ms": sg["bound_ms"],
+        "bound_by": sg["bound_by"],
+        "library_ms": sg["library_ms"],
+        "library": "torch.topk(lw, M + 1): the first stage alone; no single PyTorch call computes the resampler",
+        "device_ms": sg["device_ms"],
+        "enqueue_us": sg["enqueue_us"],
+        "bytes": sg["bytes"],
+        **times["floor"],
+        "by_shape": {k: {"shape": shapes[k], **times[k]} for k in shapes},
     }], "card": card, "hazard_onsets": onsets, "single_group": sg_stats, "slice": stats}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

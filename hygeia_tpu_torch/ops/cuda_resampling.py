@@ -21,27 +21,32 @@ from hygeia_tpu_torch.ops import resampling as plain
 from hygeia_tpu_torch.ops.resampling import ResampleResult
 
 MAX_SLOTS = 1024  # kMaxSlots in the kernel: M + 1 must fit
-MAX_SORT_KEYS = 2048  # kMaxSortKeys: the top-(M+1) is a sort up to here
+MIN_THREADS = 256  # kMinThreads: a block for N <= 256
+WIDE_THREADS = 512  # kWideThreads: a block for N > 256
+RADIX_BINS, RADIX_PASSES = 256, 6  # the select's histograms, one a pass
 # The dynamic shared memory a block may opt in to on an H100 (sm_90:
 # 227 KB, cudaDevAttrMaxSharedMemoryPerBlockOptin), less 1 KB for the
-# kernel's static shared arrays (~170 B).
+# kernel's static shared arrays (~200 B).
 SMEM_BUDGET = 227 * 1024 - 1024
 
 
-def _sort_keys(n):
-    """Padded key count of the kernel's sort path (0: the argmax path)."""
-    p = 2
-    while p < n:
+def threads(n, m):
+    """Threads of a block: 256 for N <= 256, 512 above, or the next power
+    of two >= M + 1 when that is larger (the kernel's sort holds one 8-byte
+    key a thread)."""
+    p = 1
+    while p < m + 1:
         p *= 2
-    return p if p <= MAX_SORT_KEYS else 0
+    return max(p, MIN_THREADS if n <= MIN_THREADS else WIDE_THREADS)
 
 
 def smem_bytes(n, m):
-    """Dynamic shared memory of one block, as the kernel lays it out: N
-    weights, N prefix sums and N flag bytes; three (M+1)-slot arrays; the
-    sort path's padded (value, index) keys."""
-    kk = min(m + 1, n)
-    return 9 * n + 12 * kk + 8 * _sort_keys(n)
+    """Dynamic shared memory of one block, as the kernel lays it out: a
+    scratch region (the select's histograms and two exchange buffers of
+    one key a thread; later the N prefix sums), padded to 16 bytes; N
+    weights; three (M+1)-slot arrays."""
+    scratch = max(4 * n, 4 * RADIX_BINS * RADIX_PASSES + 2 * 8 * threads(n, m))
+    return -(-scratch // 16) * 16 + 4 * n + 12 * (m + 1)
 
 
 def supports(n, m):
@@ -66,6 +71,7 @@ class _Kernel:
     def __init__(self):
         self.lib = None
         self.build = None
+        self.launch = None  # the C entry, argtypes set
         self.launches = 0
 
     def load(self):
@@ -76,13 +82,17 @@ class _Kernel:
             vp, i = ctypes.c_void_p, ctypes.c_int
             lib.hygeia_optimal_resampling.argtypes = [vp, vp, vp, i, i, i, vp, vp, vp, vp, vp, vp]
             lib.hygeia_optimal_resampling.restype = i
+            lib.hygeia_empty_launch.argtypes = [vp]
+            lib.hygeia_empty_launch.restype = i
             lib.hygeia_cuda_error_string.argtypes = [i]
             lib.hygeia_cuda_error_string.restype = ctypes.c_char_p
-            self.lib, self.build = lib, info
+            self.lib, self.build, self.launch = lib, info, lib.hygeia_optimal_resampling
         return self.lib
 
 
 KERNEL = _Kernel()
+# The (N, M) that ``supports`` has taken: a hit needs no second verdict.
+_TAKEN = set()
 
 
 def _check(name, t, shape, dtype, device):
@@ -101,48 +111,64 @@ def optimal_resampling_cuda(log_weights, num_offspring, u_sys, u_mult) -> Resamp
 
     log_weights (U, N) f32, each row normalised (logsumexp 0) and NaN-free;
     u_sys (U,) f32; u_mult (U, M) f32. Raises where the kernel cannot go
-    (``supports``)."""
-    if log_weights.device.type != "cuda":
-        raise ValueError(
-            f"the CUDA resampler needs CUDA tensors, got {log_weights.device}"
-        )
+    (``supports``).
+
+    This runs once per site of a host-bound loop, so it spends as little
+    host time as it can: the shape's verdict is remembered, the checks are
+    one expression until one fails, the stream comes from the raw lookup,
+    the outputs are ``empty_like`` of the checked inputs, and the device
+    context is entered only off the current device. (One allocation viewed
+    as the five outputs was measured no cheaper than five allocations: a
+    split and five views cost what four small allocations do.)"""
+    dev = log_weights.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA resampler needs CUDA tensors, got {dev}")
     if log_weights.dim() != 2:
         raise ValueError(f"log_weights must be (U, N), got {tuple(log_weights.shape)}")
     U, N = log_weights.shape
     M = int(num_offspring)
-    dev = log_weights.device
-    refused = supports(N, M)
-    if refused:
-        raise ValueError(refused)
-    _check("log_weights", log_weights, (U, N), torch.float32, dev)
-    _check("u_sys", u_sys, (U,), torch.float32, dev)
-    _check("u_mult", u_mult, (U, M), torch.float32, dev)
+    if (N, M) not in _TAKEN:
+        refused = supports(N, M)
+        if refused:
+            raise ValueError(refused)
+        _TAKEN.add((N, M))
+    f32 = torch.float32
+    if not (
+        log_weights.dtype is f32 and log_weights.is_contiguous()
+        and u_sys.dtype is f32 and u_sys.device == dev and u_sys.shape == (U,) and u_sys.is_contiguous()
+        and u_mult.dtype is f32 and u_mult.device == dev and u_mult.shape == (U, M)
+        and u_mult.is_contiguous()
+    ):  # one of these names what is wrong
+        _check("log_weights", log_weights, (U, N), f32, dev)
+        _check("u_sys", u_sys, (U,), f32, dev)
+        _check("u_mult", u_mult, (U, M), f32, dev)
 
-    lib = KERNEL.load()
-    parents = torch.empty((U, M), dtype=torch.int32, device=dev)
-    new_w = torch.empty((U, M), dtype=torch.float32, device=dev)
-    top_idx = torch.empty((U, M), dtype=torch.int32, device=dev)
-    log_c = torch.empty((U,), dtype=torch.float32, device=dev)
-    bad = torch.empty((U,), dtype=torch.bool, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = lib.hygeia_optimal_resampling(
-            log_weights.data_ptr(), u_sys.data_ptr(), u_mult.data_ptr(),
-            U, N, M,
-            parents.data_ptr(), new_w.data_ptr(), top_idx.data_ptr(),
-            log_c.data_ptr(), bad.data_ptr(), stream,
-        )
+    launch = KERNEL.launch or KERNEL.load().hygeia_optimal_resampling
+    # empty_like of a checked input: about half the host time of
+    # torch.empty(shape, dtype=..., device=...).
+    parents = torch.empty_like(u_mult, dtype=torch.int32)
+    new_w = torch.empty_like(u_mult)
+    top_idx = torch.empty_like(u_mult, dtype=torch.int32)
+    log_c = torch.empty_like(u_sys)
+    bad = torch.empty_like(u_sys, dtype=torch.bool)
+    args = (
+        log_weights.data_ptr(), u_sys.data_ptr(), u_mult.data_ptr(), U, N, M,
+        parents.data_ptr(), new_w.data_ptr(), top_idx.data_ptr(), log_c.data_ptr(), bad.data_ptr(),
+    )
+    # torch._C._cuda_getCurrentRawStream is what torch.cuda.current_stream
+    # wraps: the same handle as torch.cuda.current_stream(dev).cuda_stream,
+    # which is the public call to return to should the private one go.
+    index = dev.index
+    if index == torch.cuda.current_device():
+        rc = launch(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(dev):
+            rc = launch(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
-        msg = lib.hygeia_cuda_error_string(rc).decode()
+        msg = KERNEL.lib.hygeia_cuda_error_string(rc).decode()
         raise RuntimeError(f"optimal_resampling kernel launch failed: {msg} ({rc})")
     KERNEL.launches += 1
-    return ResampleResult(
-        parent_indices=parents,
-        log_c=log_c,
-        use_unbiased=bad,
-        new_log_weights=new_w,
-        top_m_indices=top_idx,
-    )
+    return ResampleResult(parents, log_c, bad, new_w, top_idx)
 
 
 def optimal_resampling(log_weights, num_offspring, u_sys, u_mult) -> ResampleResult:

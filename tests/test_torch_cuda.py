@@ -56,15 +56,18 @@ def test_kernel_matches_plain(device, U, N, M):
         torch.testing.assert_close(got.new_log_weights, want.new_log_weights, rtol=1e-5, atol=1e-6)
 
 
-def test_kernel_at_the_shared_memory_bound(device):
-    """N = 24,000 weights (~220 KB of shared memory), M = 500. Selection of
+@pytest.mark.parametrize("N,M", [(24000, 500), (28500, 50)])
+def test_kernel_at_the_shared_memory_bound(device, N, M):
+    """N = 24,000 weights, M = 500 (~200 KB of shared memory) and N = 28,500,
+    M = 50 (~225 KB, the most a block may have). Selection of
     the resampled offspring compares grid points against f32 prefix sums
-    over 24,000 weights, which the kernel and torch.cumsum round in other
+    over that many weights, which the kernel (one order over 256 lanes,
+    unchanged by the redesign) and torch.cumsum round in other
     orders: a grid point within that rounding of a boundary may pick the
     neighbour, so parents must agree on 99% of the slots, the rest exactly."""
     rng = np.random.default_rng(7)
     g = torch.Generator(device=device).manual_seed(0)
-    U, N, M = 2, 24000, 500
+    U = 2
     assert cr.supports(N, M) is None
     for trial in range(2):
         lw = _weights(rng, U, N, 1.0 + 2 * trial, device)
@@ -79,6 +82,76 @@ def test_kernel_at_the_shared_memory_bound(device):
         assert same >= 0.99, same
 
 
+def _compare(device, lw, M, exact_parents=True):
+    U = lw.shape[0]
+    g = torch.Generator(device=device).manual_seed(1)
+    us = torch.rand((U,), generator=g, device=device)
+    um = torch.rand((U, M), generator=g, device=device)
+    got = cr.optimal_resampling(lw, M, us, um)
+    want = plain.optimal_finite_state_resampling(lw, M, us, um)
+    torch.cuda.synchronize(device)
+    assert torch.equal(got.use_unbiased, want.use_unbiased)
+    assert torch.equal(got.top_m_indices, want.top_m_indices)
+    torch.testing.assert_close(got.log_c, want.log_c, rtol=1e-5, atol=1e-6)
+    if exact_parents:
+        assert torch.equal(got.parent_indices, want.parent_indices)
+        torch.testing.assert_close(got.new_log_weights, want.new_log_weights, rtol=1e-5, atol=1e-6)
+    assert int(got.parent_indices.min()) >= 0 and int(got.parent_indices.max()) < lw.shape[1]
+    return got
+
+
+def _normalise(t):
+    return (t - torch.logsumexp(t, dim=-1, keepdim=True)).contiguous()
+
+
+@pytest.mark.parametrize("U", [1, 132])
+@pytest.mark.parametrize("N,M", [(250, 244), (2400, 50)])
+@pytest.mark.parametrize("case", ["all_equal", "ties_fill_the_top_set", "all_but_3_dead"])
+def test_kernel_corner_cases_at_the_main_shapes(device, U, N, M, case):
+    """Exact ties and -inf runs at both main paths' shapes, one unit and one
+    per SM: the radix select has to go on into the index bits, and the
+    top set has to come out lowest index first. With exact ties the prefix
+    sums of kernel and torch.cumsum may round a grid point to either
+    neighbour, so the resampled parents are held to the range only."""
+    rng = np.random.default_rng(N + U)
+    if case == "all_equal":
+        lw = torch.zeros((U, N), device=device)
+    elif case == "ties_fill_the_top_set":
+        x = rng.gumbel(size=(U, N)).astype(np.float32) - 30.0
+        for u in range(U):
+            x[u, rng.choice(N, min(M + 6, N), replace=False)] = 0.0
+        lw = torch.from_numpy(x).to(device)
+    else:
+        x = np.full((U, N), -np.inf, np.float32)
+        for u in range(U):
+            x[u, rng.choice(N, 3, replace=False)] = rng.gumbel(size=3)
+        lw = torch.from_numpy(x).to(device)
+    got = _compare(device, _normalise(lw), M, exact_parents=(case == "all_but_3_dead"))
+    if case == "all_but_3_dead":
+        assert bool(got.use_unbiased.all())  # 3 live < M: the multinomial fallback
+        live = torch.isfinite(lw).gather(1, got.parent_indices.long())
+        assert bool(live.all())
+    else:
+        assert not bool(got.use_unbiased.any())
+        c = torch.exp(got.log_c.double())[:, None]
+        mass = torch.clamp(c * torch.exp(_normalise(lw).double()), max=1.0).sum(dim=-1)
+        torch.testing.assert_close(mass, torch.full_like(mass, M), rtol=1e-3, atol=0)
+
+
+@pytest.mark.parametrize("N,M,threads", [
+    (256, 100, 256), (257, 100, 512), (600, 254, 512), (600, 255, 512), (600, 256, 512),
+    (1500, 511, 512), (1500, 512, 1024), (250, 255, 256), (250, 256, 512),
+])
+def test_kernel_on_both_sides_of_the_block_size_switch(device, N, M, threads):
+    """The block has 256 threads up to N = 256 and 512 above, and the next
+    power of two >= M + 1 when that is more; the outputs do not depend on
+    it (the sums that reach an output keep one order over 256 lanes)."""
+    assert cr.threads(N, M) == threads
+    rng = np.random.default_rng(N * M)
+    for trial in range(3):
+        _compare(device, _weights(rng, 3, N, 1.0 + 3 * trial, device, dead=0.1 * trial), M)
+
+
 def test_kernel_counts_launches_and_rejects_what_it_cannot_take(device):
     lw = _weights(np.random.default_rng(0), 2, 240, 1.0, device)
     us, um = torch.rand(2, device=device), torch.rand(2, 5, device=device)
@@ -89,7 +162,7 @@ def test_kernel_counts_launches_and_rejects_what_it_cannot_take(device):
         cr.optimal_resampling(lw, 1024, us, torch.rand(2, 1024, device=device))
     with pytest.raises(TypeError):
         cr.optimal_resampling(lw.double(), 5, us, um)
-    big = torch.zeros((1, 26000), device=device)
+    big = torch.zeros((1, 30000), device=device)
     with pytest.raises(ValueError, match="shared memory"):
         cr.optimal_resampling(big, 5, us[:1], um[:1])
     with pytest.raises(ValueError, match="contiguous"):
