@@ -2,8 +2,9 @@
 """Smoke test of the PyTorch port (hygeia_tpu_torch) on one CUDA GPU.
 
     python3 chip_smoke.py                                       # the full check
-    python3 chip_smoke.py --sites 50000                         # infer's segment as long as it has been
-    python3 chip_smoke.py --chrom_sites 3300 --sites 3000 --buffer 300  # a quick look
+    python3 chip_smoke.py --sites 30000 --buffer 5000           # infer's segment as long as it has been
+    python3 chip_smoke.py --chrom_sites 3300 --sites 3000 --buffer 300 --stream_block 512 \
+        --chrom2_sites 3000                                     # a quick look
 
 Phases, each of which raises (exit code non-zero) when it fails:
 
@@ -29,7 +30,9 @@ Phases, each of which raises (exit code non-zero) when it fails:
    yardstick of the first stage alone;
 4. the single-group hazard tables (``build_tables`` at the CLI defaults,
    kappa fixed and free) on the card and on the CPU: bit-identical f32
-   rho, exit latch and gradient tables; the latch onsets are printed;
+   rho, exit latch and gradient tables, and latch onsets equal to the JAX
+   package's f32 tables' on the CPU (pinned here, JAX_ONSETS; the card's
+   machine has no JAX, tests/test_torch_single_group.py holds the pin);
 5. a seeded reference-format chromosome of 105,000 CpGs is written to a
    temporary directory: 2 control + 2 case samples for ``infer`` and the
    two control samples as headed CSVs for the single-group engine, which
@@ -40,13 +43,26 @@ Phases, each of which raises (exit code non-zero) when it fails:
    launch count and the planted high and low methylation stretches; its
    theta file is the one the next phase reads;
 7. ``hygeia_tpu_torch.cli infer`` on the estimated theta, batch 0 of the
-   chromosome (segment 30,000 + halo 5,000, M=50 -> N=2400, B=25, f32;
-   the segment is cut from the production 100,000, and from the 50,000 it
-   had while a host ran both site loops at 2.8-3.6 ms a site: at the
-   5.3-5.5 ms of a slower one the whole check took 920 s of its 1200),
-   with checks on every output file, logZ,
-   the degenerate-step count, the kernel's launch count and the planted
-   differentially methylated windows.
+   chromosome (segment 10,000 + halo 1,000, M=50 -> N=2400, B=25, f32;
+   the segment is cut from the production 100,000, from the 50,000 it had
+   while a host ran both site loops at 2.8-3.6 ms a site, and from the
+   30,000 + 5,000 it had before phases 8 and 9 came), with checks on every
+   output file, logZ, the degenerate-step count, the kernel's launch count
+   and the planted differentially methylated windows;
+8. ``infer --streaming_blocks 2048`` (runner.infer_segment, as the CLI
+   calls it, with its per-block timings; ``--stream_block``) on the same
+   window and seed: 6 blocks (5 x 2,048 + 760). Every npz array equal to phase 7's bit for
+   bit, logZ within rtol 1e-5 of phase 7's, every block's re-run equal to
+   its checkpoint, the kernel launched 2T - len_last - 2 times, peak
+   max_memory_allocated below half of phase 7's; the device-to-host copy
+   of each block's trajectories is timed;
+9. ``runner.infer_chromosome_streamed`` on a second seeded chromosome "2"
+   of 11,000 CpGs with planted DMRs and phase 6's theta: segment 2,000,
+   halo 200, seeds (0, 1), W=1,024, so windows of 2,200, 2,400 and 1,200
+   sites in groups of 2, 8 and 2 units. Every (batch, seed) file's name,
+   shape and dtype, logZ finite, no degenerate step, the split probability
+   higher inside the DMRs than outside, and launches equal to the sum of
+   the per-chunk formula; sites x units per second is printed.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc;
@@ -74,6 +90,12 @@ MU = (0.95, 0.05, 0.80, 0.20, 0.50, 0.50)
 SIGMA = (0.05, 0.05, 0.1, 0.1, 0.1, 0.2886751)
 SG_MU = (0.99, 0.01, 0.80, 0.20, 0.50, 0.50)  # the single-group CLI's defaults
 SG_N = 250  # the single-group CLI's --n_particles default: M_cap = N - R
+# The JAX package's f32 exit-latch onsets at the CLI defaults (d_max 4096;
+# None: no latch), as its CPU computes the tables; the port's f32 tables
+# are JAX's bit for bit (tests/test_torch_single_group.py).
+JAX_ONSETS = {"kappa fixed": [3728, None, None, None, None, None],
+              "kappa free": [3728, None, None, None, None, None]}
+CHROM2 = dict(segment_size=2000, buffer_size=200, seeds=(0, 1), block=1024)
 
 
 class SmokeFailure(RuntimeError):
@@ -326,15 +348,17 @@ def hazard_phase(device):
                   f"({int((a != b).sum())} entries)")
         ex = tables["cuda"].exit_status.cpu().numpy()
         onsets[label] = [int(r.argmax()) if r.any() else None for r in ex]
+        check(onsets[label] == JAX_ONSETS[label],
+              f"hazard {label}: latch onsets {onsets[label]}, the JAX package's {JAX_ONSETS[label]}")
         print(f"hazard tables ({label}, f32, d_max 4096): CPU and card bit-identical "
-              f"({', '.join(names)}); exit-latch onsets per regime {onsets[label]}")
+              f"({', '.join(names)}); exit-latch onsets per regime {onsets[label]}, the JAX package's")
     return onsets
 
 
 # ----------------------------------------------------------------- slice ----
 
-def make_dataset(root, n_sites, seed=0, n_dmr=20, dmr_len=300):
-    """A reference-format chromosome "1": piecewise-constant control regimes
+def make_dataset(root, n_sites, seed=0, n_dmr=20, dmr_len=300, chrom="1"):
+    """A reference-format chromosome: piecewise-constant control regimes
     drawn from the default mu/sigma Betas, Poisson(20) depth, 2 control and
     2 case samples; in n_dmr planted windows the case samples flip between
     the high (0.95) and low (0.05) regimes. The control samples are also
@@ -369,11 +393,13 @@ def make_dataset(root, n_sites, seed=0, n_dmr=20, dmr_len=300):
     y_c, n_c = counts(regime)
     y_k, n_k = counts(case_regime)
     positions = np.cumsum(rng.integers(1, 200, size=n_sites)) + 10_000
-    hio.write_count_matrix(os.path.join(data_dir, "positions_1.txt.gz"), positions)
-    hio.write_count_matrix(os.path.join(data_dir, "n_total_reads_control_1.txt.gz"), n_c)
-    hio.write_count_matrix(os.path.join(data_dir, "n_methylated_reads_control_1.txt.gz"), y_c)
-    hio.write_count_matrix(os.path.join(data_dir, "n_total_reads_case_1.txt.gz"), n_k)
-    hio.write_count_matrix(os.path.join(data_dir, "n_methylated_reads_case_1.txt.gz"), y_k)
+    hio.write_count_matrix(os.path.join(data_dir, f"positions_{chrom}.txt.gz"), positions)
+    hio.write_count_matrix(os.path.join(data_dir, f"n_total_reads_control_{chrom}.txt.gz"), n_c)
+    hio.write_count_matrix(os.path.join(data_dir, f"n_methylated_reads_control_{chrom}.txt.gz"), y_c)
+    hio.write_count_matrix(os.path.join(data_dir, f"n_total_reads_case_{chrom}.txt.gz"), n_k)
+    hio.write_count_matrix(os.path.join(data_dir, f"n_methylated_reads_case_{chrom}.txt.gz"), y_k)
+    if chrom != "1":
+        return data_dir, sg_dir, dmr, regime
     sg_in = os.path.join(root, "single_group_input")
     hio.write_headed_matrix(os.path.join(sg_in, "n_methylated_reads_1.csv"), y_c.T, "sample")
     hio.write_headed_matrix(os.path.join(sg_in, "n_total_reads_1.csv"), n_c.T, "sample")
@@ -542,15 +568,168 @@ def slice_phase(device, root, data_dir, sg_dir, dmr, segment_size, buffer_size, 
     return stats, launches
 
 
+def streamed_phase(device, root, data_dir, sg_dir, segment_size, buffer_size, mono, block, seed=0):
+    """infer --streaming_blocks ``block`` on phase 7's window and seed, through
+    runner.infer_segment as the CLI calls it (with its per-block timings):
+    the same files as phase 7 bit for bit. Returns (stats, launches)."""
+    import numpy as np
+    import torch
+    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
+    from hygeia_tpu_torch.two_group.runner import infer_segment
+    from hygeia_tpu_torch.two_group.streaming import block_bounds, launches_per_call
+
+    T, N = segment_size + buffer_size, 50 * (2 * R + R * R)
+    results = os.path.join(root, "results_streamed")
+    torch.cuda.reset_peak_memory_stats(device)
+    KERNEL.launches = 0
+    tim = {}
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        log_z = infer_segment(data_dir=data_dir, single_group_dir=sg_dir, results_dir=results, chrom="1",
+                              device=device, batch=0, seed=seed, segment_size=segment_size,
+                              buffer_size=buffer_size, streaming_blocks=block, timings=tim)[N]
+    wall = time.perf_counter() - t0
+    launches = KERNEL.launches
+    peak = torch.cuda.max_memory_allocated(device)
+    print(out.getvalue().strip())
+
+    a_dir, b_dir = os.path.join(root, "results", "chrom_1_0"), os.path.join(results, "chrom_1_0")
+    names = sorted(n for n in os.listdir(a_dir) if n.endswith(".npz"))
+    check(names == sorted(n for n in os.listdir(b_dir) if n.endswith(".npz")), "streamed: other npz files")
+    for name in names:
+        a, b = np.load(os.path.join(a_dir, name))["arr_0"], np.load(os.path.join(b_dir, name))["arr_0"]
+        check(a.dtype == b.dtype and np.array_equal(a, b), f"streamed: {name} differs from the monolithic run")
+    check(f"seed {seed}: degenerate_steps=0" in out.getvalue(), "streamed: degenerate filter steps")
+    check(math.isclose(log_z, mono["logZ"], rel_tol=1e-5), f"streamed: logZ {log_z} vs {mono['logZ']}")
+    reruns = tim["rerun_equals_checkpoint"][0]
+    bounds = block_bounds(T, block)
+    check(len(reruns) == len(bounds) - 1 and all(reruns), f"streamed: re-runs equal to checkpoints {reruns}")
+    want = launches_per_call(T, block)
+    check(launches == want, f"streamed: kernel launched {launches} times, 2T - len_last - 2 = {want}")
+    check(peak < mono["max_memory_allocated_bytes"] / 2,
+          f"streamed: peak {peak} bytes, not below half of the monolithic {mono['max_memory_allocated_bytes']}")
+    pull = tim["pull"][0]
+    stats = {
+        "sites": T, "blocks": [hi - lo for lo, hi in bounds], "logZ": log_z,
+        "logZ_equal_bitwise": log_z == mono["logZ"], "wall_s": wall,
+        "fwd_s": sum(tim["fwd"][0]), "rev_s": sum(tim["rev"][0]), "pull_s_per_block": pull,
+        "sites_per_s": T / wall, "launches_per_site": launches / T,
+        "max_memory_allocated_bytes": peak,
+    }
+    print(f"streamed: T={T} W={block} blocks {stats['blocks']}: npz arrays equal to the monolithic "
+          f"run bit for bit, logZ {log_z:.3f} (bitwise equal: {stats['logZ_equal_bitwise']}), re-runs equal "
+          f"to checkpoints, launches={launches}; forward {stats['fwd_s']:.2f} s, reverse {stats['rev_s']:.2f} s, "
+          f"wall {wall:.2f} s; device-to-host copy per block {[round(x, 6) for x in pull]} s; "
+          f"max_memory_allocated {peak} (monolithic {mono['max_memory_allocated_bytes']})")
+    return stats, launches
+
+
+def chromosome_phase(device, root, n_sites, seed=1):
+    """infer_chromosome_streamed on a second seeded chromosome "2" with phase
+    6's theta. Returns (stats, launches)."""
+    import numpy as np
+    import torch
+    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
+    from hygeia_tpu_torch.two_group.runner import infer_chromosome_streamed, segment_window
+    from hygeia_tpu_torch.two_group.streaming import launches_per_call
+
+    data_dir, sg_dir, dmr, _ = make_dataset(root, n_sites, seed=seed, chrom="2")
+    shutil.copy(os.path.join(sg_dir, "theta_1.csv.gz"), os.path.join(sg_dir, "theta_2.csv.gz"))
+    seg, buf, seeds, W = (CHROM2[k] for k in ("segment_size", "buffer_size", "seeds", "block"))
+    results = os.path.join(root, "results_chrom")
+    torch.cuda.reset_peak_memory_stats(device)
+    KERNEL.launches = 0
+    tim = {}
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        log_z = infer_chromosome_streamed(data_dir=data_dir, single_group_dir=sg_dir, results_dir=results,
+                                          chrom="2", device=device, seed=seeds, segment_size=seg,
+                                          buffer_size=buf, streaming_blocks=W, timings=tim)
+    wall = time.perf_counter() - t0
+    launches = KERNEL.launches
+    text = out.getvalue()
+
+    N, B = 50 * (2 * R + R * R), 25
+    split_sum = {True: 0.0, False: 0.0}
+    split_n = {True: 0, False: 0}
+    batches = sorted(log_z)
+    for batch in batches:
+        sl, ret = segment_window(n_sites, batch, seg, buf)
+        t_w, n_ret = len(sl), len(ret)
+        path = os.path.join(results, f"chrom_2_{batch}")
+        for s in seeds:
+            check(math.isfinite(log_z[batch][s][N]), f"chromosome: batch {batch} seed {s} logZ not finite")
+            check(f"batch {batch} seed {s}: degenerate_steps=0" in text,
+                  f"chromosome: batch {batch} seed {s} degenerate filter steps")
+            expect = {
+                f"optimal_backward_particles_merged_state_{N}_{s}.npz": ((n_ret, B), np.int16),
+                f"optimal_backward_particles_control_state_{N}_{s}.npz": ((n_ret, B, 2), np.int32),
+                f"optimal_backward_particles_case_state_{N}_{s}.npz": ((n_ret, B, 2), np.int32),
+                f"optimal_split_probs_{N}_{s}.npz": ((t_w,), np.float32),
+                f"optimal_regime_probs_{N}_{s}.npz": ((t_w, 2 * R), np.float32),
+            }
+            for name, (shape, dtype) in expect.items():
+                arr = np.load(os.path.join(path, name))["arr_0"]
+                check(arr.shape == shape and arr.dtype == dtype,
+                      f"chromosome: batch {batch} {name}: {arr.shape} {arr.dtype}, expected {shape} {dtype}")
+            for name in (f"flags{s}.txt", f"log_normalizing_constants_optimal_{s}.txt",
+                         f"optimal_time_{s}.txt", f"optimal_time_backward_{s}.txt"):
+                check(os.path.exists(os.path.join(path, name)), f"chromosome: batch {batch} missing {name}")
+            split = np.load(os.path.join(path, f"optimal_split_probs_{N}_{s}.npz"))["arr_0"][ret]
+            in_dmr = dmr[sl.start + ret.start : sl.start + ret.stop]
+            for flag in (True, False):
+                split_sum[flag] += float(split[in_dmr == flag].sum())
+                split_n[flag] += int((in_dmr == flag).sum())
+        for name in ("observations_control", "observations_case", "n_total_reads_control",
+                     "n_total_reads_case", "positions"):
+            check(os.path.exists(os.path.join(path, f"{name}.csv.gz")), f"chromosome: missing {name}.csv.gz")
+    in_dmr, out_dmr = split_sum[True] / split_n[True], split_sum[False] / split_n[False]
+    check(in_dmr > out_dmr, f"chromosome: split probability in DMRs {in_dmr:.3f} <= outside {out_dmr:.3f}")
+    chunks = tim["chunks"]
+    want = sum(launches_per_call(t_w, W) for t_w, _, _, _ in chunks)
+    check(launches == want, f"chromosome: kernel launched {launches} times, the per-chunk formula gives {want}")
+    # One chunk a window length, of all its (batch, seed) units: 2, 8 and 2
+    # at the default 11,000 CpGs.
+    groups = {}
+    for batch in batches:
+        t_w = len(segment_window(n_sites, batch, seg, buf)[0])
+        groups[t_w] = groups.get(t_w, 0) + len(seeds)
+    got_chunks = sorted((t_w, units) for t_w, units, _, _ in chunks)
+    check(got_chunks == sorted(groups.items()), f"chromosome: chunks {got_chunks}, expected {sorted(groups.items())}")
+    unit_sites = sum(t_w * units for t_w, units, _, _ in chunks)
+    stats = {
+        "sites": n_sites, "batches": len(batches), "seeds": list(seeds), "block": W,
+        "chunks": [{"window": t_w, "units": u, "seconds": sec, "pull_s_per_block": t["pull"]}
+                   for t_w, u, sec, t in chunks],
+        "wall_s": wall, "unit_sites_per_s": unit_sites / wall,
+        "launches_per_site": launches / sum(t_w for t_w, _, _, _ in chunks),
+        "split_in_dmr": in_dmr, "split_outside": out_dmr,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(device),
+    }
+    print(f"chromosome: {n_sites} CpGs, {len(batches)} batches x seeds {list(seeds)}, W={W}: chunks "
+          f"{[(c['window'], c['units'], round(c['seconds'], 2)) for c in stats['chunks']]} (window, units, s); "
+          f"launches={launches}; {stats['unit_sites_per_s']:.1f} sites x units per s; split prob in DMRs "
+          f"{in_dmr:.3f} vs outside {out_dmr:.3f}; max_memory_allocated {stats['max_memory_allocated_bytes']}")
+    return stats, launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--chrom_sites", type=int, default=105_000,
                     help="CpGs of the chromosome, all read by the single-group engine (default 105000)")
-    ap.add_argument("--sites", type=int, default=30_000, help="infer's segment size (default 30000)")
-    ap.add_argument("--buffer", type=int, default=5_000, help="infer's halo size (default 5000)")
+    ap.add_argument("--sites", type=int, default=10_000, help="infer's segment size (default 10000)")
+    ap.add_argument("--buffer", type=int, default=1_000, help="infer's halo size (default 1000)")
+    ap.add_argument("--stream_block", type=int, default=2048,
+                    help="the streamed phase's --streaming_blocks (default 2048)")
+    ap.add_argument("--chrom2_sites", type=int, default=11_000,
+                    help="CpGs of the chromosome of the streamed chromosome phase (default 11000)")
     args = ap.parse_args(argv)
     if args.sites + args.buffer > args.chrom_sites:
         ap.error("the infer segment and halo must fit in the chromosome")
+    if args.sites + args.buffer <= args.stream_block:
+        ap.error("the infer window must be longer than one streamed block")
 
     import torch
 
@@ -589,6 +768,9 @@ def main(argv=None):
               f"written in {time.perf_counter() - t0:.1f} s")
         sg_stats, sg_launches = single_group_phase(device, root, regime)
         stats, launches = slice_phase(device, root, data_dir, sg_dir, dmr, args.sites, args.buffer)
+        st_stats, st_launches = streamed_phase(device, root, data_dir, sg_dir, args.sites, args.buffer, stats,
+                                               args.stream_block)
+        ch_stats, ch_launches = chromosome_phase(device, root, args.chrom2_sites)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -604,12 +786,19 @@ def main(argv=None):
         "route": "cuda",
         "source": "hygeia_tpu_torch/csrc/optimal_resampling.cu",
         "replaces": "hygeia_tpu/ops/pallas_resampling.py:50",
-        "launches": sg_launches + launches,
+        "launches": sg_launches + launches + st_launches + ch_launches,
         "launches_single_group": sg_launches,
         "launches_two_group": launches,
-        # This run's counts over this run's resampling sites, per path.
+        "launches_streamed": st_launches,
+        "launches_chromosome": ch_launches,
+        # This run's counts per site, per path: over the resampling sites
+        # (single group, two group), over the window's sites (streamed) and
+        # over the sites of the chunks' windows (chromosome: one launch
+        # serves every unit of a chunk).
         "launches_per_site": {"single_group": sg_stats["launches_per_site"],
-                              "two_group": stats["launches_per_site"]},
+                              "two_group": stats["launches_per_site"],
+                              "streamed": st_stats["launches_per_site"],
+                              "chromosome": ch_stats["launches_per_site"]},
         "max_abs_err": max_err,
         # The top-level times are the single-group engine's shape.
         "shape": shapes["single_group"],
@@ -624,7 +813,8 @@ def main(argv=None):
         "bytes": sg["bytes"],
         **times["floor"],
         "by_shape": {k: {"shape": shapes[k], **times[k]} for k in shapes},
-    }], "card": card, "hazard_onsets": onsets, "single_group": sg_stats, "slice": stats}))
+    }], "card": card, "hazard_onsets": onsets, "single_group": sg_stats, "slice": stats,
+        "streamed": st_stats, "chromosome": ch_stats}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

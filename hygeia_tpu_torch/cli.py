@@ -46,7 +46,9 @@ def build_parser():
     sp.add_argument("--marginal_epsilon", type=float, default=0.01)
     sp.add_argument("--marginal_window", type=int, default=64)
     sp.add_argument("--streaming_blocks", type=int, default=None,
-                    help="checkpointed streaming backward: not ported yet, raises")
+                    help="checkpointed streamed filter and backward pass in blocks of this "
+                         "many sites: one block of history on the device; the same outputs "
+                         "as without it")
     sp.add_argument("--trace_dir", default=None,
                     help="profiler trace of the device computation: not ported yet, raises")
     sp.add_argument("--chrom", default="22")

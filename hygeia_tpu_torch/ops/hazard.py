@@ -17,18 +17,22 @@ the CPU and on a CUDA card:
   between devices. The order is the one XLA's CPU backend gives
   ``jnp.cumsum``: blocks of 16 summed left to right, the block totals
   scanned the same way, recursively, and the offsets added back;
-* the pmf and its gradients are computed in float64 from operations that
-  IEEE 754 rounds exactly on every device (add, multiply, divide, floor,
-  bit moves): ``_exp64``, ``_log64`` and ``_log1p64`` below are fdlibm's
-  algorithms written in those operations, the log-binomial coefficient is
-  a sum of log1p terms and the digamma difference a sum of reciprocals,
-  so no device's own ``lgamma``, ``exp`` or ``digamma`` enters a table.
+* the pmf and its gradients come from operations that IEEE 754 rounds
+  exactly on every device (add, multiply, divide, floor, bit moves), so no
+  device's own ``lgamma``, ``exp`` or ``digamma`` enters a table.
 
-The JAX package's float32 tables are not reproduced bit for bit: XLA's
-float32 ``lgamma``/``exp`` differ from these in the last bits (and by up to
-~1e-3 relative in the deep tail, where three lgammas of ~3e4 cancel), so
-the two latch at other columns (ROADMAP.md section 3). Given the same
-addends, ``_exclusive_cumsum`` equals JAX's sum bit for bit.
+In float32 the tables are the JAX package's bit for bit (its tables as
+the CPU computes them op by op): the pmf, its gradients and the tables
+follow ``hygeia_tpu/ops/hazard.py`` operation for operation, with XLA's
+CPU ``exp``/``log``/``log1p``/``lgamma``/``digamma`` replayed by
+``ops/xla_f32.py``, so the exit latch falls on JAX's columns. XLA's f32
+``lgamma`` loses up to ~1e-3 relative in the deep tail (three lgammas of
+~3e4 cancel); the port keeps that, as the latch depends on it.
+
+In float64 the pmf and its gradients are computed from fdlibm's
+algorithms written in exactly rounded operations (``_exp64``, ``_log64``,
+``_log1p64``), the log-binomial coefficient as a sum of log1p terms and
+the digamma difference as a sum of reciprocals: rtol 1e-12 of JAX's.
 
 Two-group table
 ---------------
@@ -47,6 +51,7 @@ from __future__ import annotations
 
 import torch
 
+from hygeia_tpu_torch.ops import xla_f32
 from hygeia_tpu_torch.ops.distributions import neg_binomial_log_pmf
 
 _NEG_INF = float("-inf")
@@ -202,6 +207,8 @@ def hazard_table_with_grads(kappa, omega, u, d_max, kappa_fixed=True, dtype=None
     """
     if dtype is None:
         dtype = torch.promote_types(torch.promote_types(kappa.dtype, omega.dtype), torch.float32)
+    if dtype == torch.float32:
+        return _hazard_table_with_grads_f32(kappa, omega, u, d_max, kappa_fixed)
     dev = kappa.device
     f64 = torch.float64
     kap = kappa.to(f64)[..., None]
@@ -239,6 +246,46 @@ def hazard_table_with_grads(kappa, omega, u, d_max, kappa_fixed=True, dtype=None
         "rho": rho,
         "exit_status": exit_status,
         "grad_omega_log_rho": grad_table(g_om64),
+        "grad_kappa_log_rho": grad_kappa,
+    }
+
+
+def _hazard_table_with_grads_f32(kappa, omega, u, d_max, kappa_fixed):
+    """The float32 tables in the JAX package's order of operations
+    (``hygeia_tpu/ops/hazard.py::hazard_table_with_grads`` and
+    ``ops/distributions.py::neg_binomial_log_pmf``), with XLA's CPU
+    elementary functions: JAX-CPU's bits on every device."""
+    f32 = torch.float32
+    kap = kappa.to(f32)[..., None]
+    om = omega.to(f32)[..., None]
+    d = torch.arange(1, d_max + 1, dtype=f32, device=kappa.device)
+    x = torch.clamp(d - u, min=0.0)
+    live = d >= u
+    lp = (((xla_f32.lgamma(x + kap) - xla_f32.lgamma(kap)) - xla_f32.lgamma(x + 1.0))
+          + kap * xla_f32.log1p(-om)) + x * xla_f32.log(om)
+    lp = torch.where(om == 0.0, torch.where(x == 0.0, 0.0, _NEG_INF), lp)
+    little_h = torch.where(live, xla_f32.exp(lp), 0.0)
+    big_h_prev = _exclusive_cumsum(little_h)
+    exit_status = (big_h_prev >= 1.0).to(torch.uint8).cummax(dim=-1).values.bool()
+    early = ~live
+    one = torch.ones_like(big_h_prev)
+    rho = torch.where(early, 0.0, torch.where(exit_status, 1.0, little_h / (one - big_h_prev)))
+    denom = one - torch.where(exit_status, _BIG_H_CLAMP, big_h_prev)
+
+    def grad_table(g):
+        g = torch.where(live, g, 0.0)
+        return torch.where(early, 0.0, g + _exclusive_cumsum(little_h * g) / denom)
+
+    one_om = 1.0 - om
+    g_om = ((x / om - kap / one_om) * om) * one_om
+    grad_kappa = None
+    if not kappa_fixed:
+        dig = xla_f32.digamma(x + kap) - xla_f32.digamma(kap)
+        grad_kappa = grad_table(kap * (dig - xla_f32.log1p(-om)))
+    return {
+        "rho": rho,
+        "exit_status": exit_status,
+        "grad_omega_log_rho": grad_table(g_om),
         "grad_kappa_log_rho": grad_kappa,
     }
 

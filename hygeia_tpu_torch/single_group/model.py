@@ -9,9 +9,10 @@ Counterpart of hygeia_tpu/single_group/model.py. The latent state is
 
 ``build_tables`` takes theta with leading batch axes (one theta per unit of
 the engine) and gives tables with the same leading axes. omega and kappa
-come from theta through ``inv_logit64``/``exp64``, and the hazard tables
-from ops/hazard.py, so the tables have the same bits on the CPU and on a
-CUDA card.
+come from theta through ``inv_logit64``/``exp64`` in float64 and through
+XLA's float32 ``exp`` (``ops/xla_f32.py``) in float32, and the hazard
+tables from ops/hazard.py, so the tables have the same bits on the CPU and
+on a CUDA card, and in float32 they are the JAX package's.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from hygeia_tpu_torch.ops.distributions import (
     mu_sigma_to_alpha_beta,
     row_softmax_offdiag,
 )
+from hygeia_tpu_torch.ops import xla_f32
 from hygeia_tpu_torch.ops.hazard import exp64, hazard_table_with_grads, inv_logit64
 
 _NEG_INF = float("-inf")
@@ -104,11 +106,14 @@ def build_tables(model: SingleGroupModel, theta) -> ThetaTables:
     dtype = theta.dtype
     P = row_softmax_offdiag(theta[..., : R * (R - 1)], R)
     log_P = torch.where(P > 0.0, torch.log(P), _NEG_INF)
-    omega = inv_logit64(theta[..., R * (R - 1) : R * R]).to(dtype)
+    f32 = dtype == torch.float32
+    th_omega = theta[..., R * (R - 1) : R * R]
+    omega = xla_f32.inv_logit(th_omega) if f32 else inv_logit64(th_omega).to(dtype)
     if model.kappa_fixed:
         kappa = model.kappa0.to(dtype).expand(omega.shape)
     else:
-        kappa = exp64(theta[..., R * R : R * (R + 1)]).to(dtype)
+        th_kappa = theta[..., R * R : R * (R + 1)]
+        kappa = xla_f32.exp(th_kappa) if f32 else exp64(th_kappa).to(dtype)
     haz = hazard_table_with_grads(
         kappa, omega, model.u, model.d_max, kappa_fixed=model.kappa_fixed, dtype=dtype
     )

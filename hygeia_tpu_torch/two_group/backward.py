@@ -161,16 +161,52 @@ def backward_simulation(
     Gumbel noise comes from ``generator``, or from ``noise(t)`` when given:
     a callable returning the (U, B, N) noise for row t (T-1 for the terminal
     draw), so a test can feed both packages the same numbers."""
+    return backward_simulation_conditioned(
+        params, log_weights, particles, None, False,
+        num_simulations=num_simulations, generator=generator, noise=noise,
+    )
+
+
+def backward_simulation_conditioned(
+    params: TwoGroupParams,
+    log_weights,  # (U, T, N) filter weights
+    particles: State,  # five (U, T, N) history tensors
+    terminal_state,  # (U, B, 5) int32: the next block's first-site states
+    use_terminal,  # bool, or (U,) bool tensor: condition on terminal_state?
+    *,
+    num_simulations=None,
+    generator=None,
+    noise=None,
+):
+    """Backward simulation of a genome block conditioned on the sampled
+    trajectories of the block to its right: (U, T, B, 5) int32.
+
+    Where use_terminal holds, the block's last site is drawn from the
+    backward kernel against terminal_state (the next block's states at its
+    first site, one site to the right) instead of from the final weights,
+    so trajectories join exactly across blocks. Elsewhere the terminal is
+    drawn from the final weights, as ``backward_simulation`` does. Noise is
+    consumed as in ``backward_simulation``: one (U, B, N) draw per site,
+    from T-1 down to 0."""
     U, T, N = log_weights.shape
-    B = num_simulations
+    B = terminal_state.shape[1] if terminal_state is not None else num_simulations
     dev = log_weights.device
     if noise is None:
         noise = lambda t: gumbel((U, B, N), generator=generator, dtype=log_weights.dtype, device=dev)
 
     traj = torch.empty((U, T, B, 5), dtype=torch.int32, device=dev)
+    last = State(*(f[:, T - 1] for f in particles))
     last_lw = log_weights[:, T - 1]
-    idx = _categorical_rows(last_lw[:, None, :], noise(T - 1))  # (U, B)
-    nxt = State(*(f[:, T - 1].gather(1, idx).to(torch.int32) for f in particles))
+    eps = noise(T - 1)
+    if use_terminal is False:
+        idx = _categorical_rows(last_lw[:, None, :], eps)  # (U, B)
+    else:
+        term = State(*(terminal_state[..., i].to(torch.int32) for i in range(5)))
+        logits = _backward_logits(params, last, term, last_lw, history_layout=True)
+        idx = _categorical_rows(logits, eps)
+        if use_terminal is not True:
+            idx = torch.where(use_terminal[:, None], idx, _categorical_rows(last_lw[:, None, :], eps))
+    nxt = State(*(f.gather(1, idx).to(torch.int32) for f in last))
     traj[:, T - 1] = torch.stack(nxt, dim=-1)
     for t in range(T - 2, -1, -1):
         cur = State(*(f[:, t] for f in particles))

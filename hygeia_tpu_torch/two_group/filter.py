@@ -15,6 +15,12 @@ weight-update branch and the degenerate-step reset are tensors under
   -min(0, log_c + log W_ancestor) correction. The JAX filter's
   unbiased-resampling switch is not ported: its INFER path always takes the
   optimal resampler, whose own fallback is multinomial.
+* warm start: site 0 scored by _one_step from the previous genome block's
+  final (weights, particles) and renormalised like every later site, so a
+  warm block continues the filter exactly (two_group/streaming.py).
+
+The emission tables are (T, R), shared by the units, or (U, T, R), one
+segment per unit.
 """
 
 from __future__ import annotations
@@ -45,14 +51,17 @@ HISTORY_BYTES_PER_PARTICLE_SITE = 15
 class FilterResult(NamedTuple):
     log_weights: torch.Tensor  # (U, T, N) per-step-normalised log weights
     particles: State  # five (U, T, N) tensors (int8 m/r_c/r_k, int32 d_c/d_k)
-    log_normalizing_constant: torch.Tensor  # (U,) sum of per-step shifts
+    log_normalizing_constant: torch.Tensor  # (U,) init_shift + shifts.sum(-1)
     degenerate_steps: torch.Tensor  # (U,) steps where every weight died
+    init_shift: torch.Tensor  # (U,) site 0's shift (first or warm step)
+    shifts: torch.Tensor  # (U, T-1) the shifts of sites 1..T-1
 
 
 def _first_step(params, emission_control, emission_case, n_max, weight_dtype, phantom_r):
     """R**2 initial proposals scored against the phantom-state prior, for
     phantom regimes phantom_r (U,); padded to n_max slots. Returns
-    (log weights (U, n_max), stacked particles (U, 5, n_max) int32)."""
+    (log weights (U, n_max), stacked particles (U, 5, n_max) int32). The
+    emission tables are (T, R) or (U, T, R)."""
     R = params.n_regimes
     U = phantom_r.shape[0]
     dev = params.device
@@ -61,8 +70,8 @@ def _first_step(params, emission_control, emission_case, n_max, weight_dtype, ph
     nxt = State(*(f[None, :] for f in proposals))
     trans_lp = transition_log_prob(params, prev, nxt, step0=True)  # (U, R*R)
     rc, rk = proposals.r_c.long(), proposals.r_k.long()
-    obs_lp = emission_control[0, rc] + emission_case[0, rk]
-    lw = (trans_lp + obs_lp[None, :]).to(weight_dtype)
+    obs_lp = emission_control[..., 0, :][..., rc] + emission_case[..., 0, :][..., rk]
+    lw = (trans_lp + obs_lp).to(weight_dtype)
 
     n0 = R * R
     lw_full = torch.full((U, n_max), _NEG_INF, dtype=weight_dtype, device=dev)
@@ -84,7 +93,7 @@ def _one_step(
 ):
     """One filter step for U units: prev_lw (U, N) renormalised weights,
     prev_particles (U, 5, N) int32 stacked fields (m, d_c, r_c, d_k, r_k),
-    the site's emission rows (R,), and the step's uniforms u_sys (U,),
+    the site's emission rows (R,) or (U, R), and the step's uniforms u_sys (U,),
     u_mult (U, M). Returns (new_lw (U, N), new_particles (U, 5, N)).
 
     Dead ancestors (weight -inf) may be picked as top-M padding parents;
@@ -139,6 +148,25 @@ def _renormalise(new_lw):
     return new_lw, shift, degenerate
 
 
+def _draw_uniforms(generator, U, M, device):
+    """A site's resampling uniforms: u_sys (U,), then u_mult (U, M)."""
+    u_sys = torch.rand((U,), generator=generator, device=device)
+    return u_sys, torch.rand((U, M), generator=generator, device=device)
+
+
+def warm_step(params, emission_control, emission_case, init_lw, init_particles, M, u_sys, u_mult):
+    """Site 0 of a warm-started block: _one_step from the previous block's
+    final renormalised weights init_lw (U, N) and particles (U, 5, N) int32,
+    then _renormalise, as every site of the monolithic filter. Returns
+    (lw, particles, shift, degenerate)."""
+    lw, parts = _one_step(
+        params, emission_control[..., 0, :], emission_case[..., 0, :],
+        init_lw, init_particles, M, u_sys, u_mult,
+    )
+    lw, shift, degenerate = _renormalise(lw)
+    return lw, parts, shift, degenerate
+
+
 def run_filter(
     params: TwoGroupParams,
     emission_control,
@@ -150,9 +178,11 @@ def run_filter(
     weight_dtype=torch.float32,
     phantom_regime=None,
     return_history: bool = True,
+    init_state=None,
+    use_init=None,
 ) -> FilterResult:
-    """Run the filter over the T sites of the (T, R) emission tables for
-    n_units independent units.
+    """Run the filter over the T sites of the (T, R) or (U, T, R) emission
+    tables for n_units independent units.
 
     The carried weights are renormalised every step and the shifts summed
     into the log-normalising constant, which keeps f32 weights safe over
@@ -161,26 +191,56 @@ def run_filter(
     return_history=False runs the same realisation but keeps only the final
     site: log_weights (U, N) and particles of (U, N).
 
+    Warm start: init_state = (log weights (U, N), particles (U, 5, N) int32),
+    the final state of the previous genome block, scores site 0 with
+    ``warm_step`` from it instead of the phantom-state initial distribution;
+    a degenerate warm step is reset and counted like any other site. The
+    generator then draws site 0's uniforms first, and the realisation of a
+    block is the monolithic filter's over the same sites. use_init, a (U,)
+    bool tensor, picks warm (True) or cold per unit; the phantom regimes of
+    the cold start are then drawn after site 0's uniforms.
+
     History: preallocated (U, T, N) tensors, written row by row IN PLACE
     (f32 weights, int32 durations, int8 flag and regimes). Row 0 is the
-    first step, rows 1..T-1 the sites after it, the JAX package's layout.
+    first (or warm) step, rows 1..T-1 the sites after it, the JAX package's
+    layout.
     """
     R = params.n_regimes
     M = num_resampled_ancestors
     N = M * num_children(R)
-    T = emission_control.shape[0]
+    T = emission_control.shape[-2]
     U = int(n_units)
     dev = params.device
 
-    if phantom_regime is None:
-        phantom_r = torch.randint(0, R, (U,), generator=generator, device=dev)
+    def cold_start():
+        if phantom_regime is None:
+            phantom_r = torch.randint(0, R, (U,), generator=generator, device=dev)
+        else:
+            phantom_r = torch.full((U,), int(phantom_regime), device=dev)
+        lw, parts = _first_step(
+            params, emission_control, emission_case, N, weight_dtype, phantom_r.to(torch.int32)
+        )
+        shift = torch.logsumexp(lw, dim=-1)
+        return lw - shift[:, None], parts, shift
+
+    n_degen = torch.zeros((U,), dtype=torch.int64, device=dev)
+    if init_state is None:
+        lw, parts, init_shift = cold_start()
     else:
-        phantom_r = torch.full((U,), int(phantom_regime), device=dev)
-    lw, parts = _first_step(
-        params, emission_control, emission_case, N, weight_dtype, phantom_r.to(torch.int32)
-    )
-    init_shift = torch.logsumexp(lw, dim=-1)
-    lw = lw - init_shift[:, None]
+        init_lw, init_parts = init_state
+        u_sys, u_mult = _draw_uniforms(generator, U, M, dev)
+        lw, parts, init_shift, warm_degen = warm_step(
+            params, emission_control, emission_case, init_lw.to(weight_dtype), init_parts,
+            M, u_sys, u_mult,
+        )
+        if use_init is None:
+            n_degen = n_degen + warm_degen
+        else:
+            cold_lw, cold_parts, cold_shift = cold_start()
+            lw = torch.where(use_init[:, None], lw, cold_lw)
+            parts = torch.where(use_init[:, None, None], parts, cold_parts)
+            init_shift = torch.where(use_init, init_shift, cold_shift)
+            n_degen = n_degen + (warm_degen & use_init)
 
     if return_history:
         hist_lw = torch.empty((U, T, N), dtype=weight_dtype, device=dev)
@@ -192,10 +252,9 @@ def run_filter(
     degen = torch.zeros((U, max(T - 1, 0)), dtype=torch.bool, device=dev)
 
     for t in range(1, T):
-        u_sys = torch.rand((U,), generator=generator, device=dev)
-        u_mult = torch.rand((U, M), generator=generator, device=dev)
+        u_sys, u_mult = _draw_uniforms(generator, U, M, dev)
         lw, parts = _one_step(
-            params, emission_control[t], emission_case[t], lw, parts, M, u_sys, u_mult
+            params, emission_control[..., t, :], emission_case[..., t, :], lw, parts, M, u_sys, u_mult
         )
         lw, shifts[:, t - 1], degen[:, t - 1] = _renormalise(lw)
         if return_history:
@@ -204,7 +263,7 @@ def run_filter(
                 h[:, t] = f
 
     log_z = init_shift + shifts.sum(dim=-1)
-    n_degen = degen.sum(dim=-1)
+    n_degen = n_degen + degen.sum(dim=-1)
     if not return_history:
-        return FilterResult(lw, State(*parts.unbind(1)), log_z, n_degen)
-    return FilterResult(hist_lw, hist, log_z, n_degen)
+        return FilterResult(lw, State(*parts.unbind(1)), log_z, n_degen, init_shift, shifts)
+    return FilterResult(hist_lw, hist, log_z, n_degen, init_shift, shifts)

@@ -348,6 +348,10 @@ def expand_score_and_observe_stacked(params: TwoGroupParams, anc, row_c, row_k):
     field order (m, d_c, r_c, d_k, r_k); returns children (..., 5, I, M),
     trans_lp and obs_lp (..., I, M).
 
+    The emission rows row_c, row_k are (R,), shared by every unit, or
+    (U, R), one row per unit of anc (U, 5, M): units that carry segments
+    of their own (the streamed chromosome path).
+
     Equal to expand_states + paired_transition_log_prob + the emission
     lookup, but uses the static child-slot layout (proposal.py): per slot
     region the branch tree collapses to closed forms over (..., M) ancestor
@@ -380,9 +384,12 @@ def expand_score_and_observe_stacked(params: TwoGroupParams, anc, row_c, row_k):
     rows = params.log_p_control[rc]  # (..., M, R): log_p[r_c[m], x]
     rowsT = rows.transpose(-1, -2)  # (..., R, M)
     diag_lp = rows.gather(-1, rc.unsqueeze(-1)).squeeze(-1)  # log_p[r_c, r_c]
-    obs_c_anc, obs_k_anck, obs_k_anc = (
-        torch.stack((row_c, row_k))[st.emis_row, torch.stack((rc, rk, rc), dim=-2)].unbind(-2)
-    )
+    anc_regimes = torch.stack((rc, rk, rc), dim=-2)  # (..., 3, M)
+    if row_c.dim() == 1:
+        obs3 = torch.stack((row_c, row_k))[st.emis_row, anc_regimes]
+    else:  # (U, R) rows: one gather per unit along R
+        obs3 = torch.stack((row_c, row_k), dim=-2)[:, st.emis_row[:, 0]].gather(-1, anc_regimes.long())
+    obs_c_anc, obs_k_anck, obs_k_anc = obs3.unbind(-2)
 
     m0, m1 = m_p == 0, m_p == 1
     rc_eq_rk = r_c == r_k
@@ -403,7 +410,7 @@ def expand_score_and_observe_stacked(params: TwoGroupParams, anc, row_c, row_k):
     lp_p_sel = torch.where(shift_mask, rowsT[..., :-1, :], rowsT[..., 1:, :])
     lp_ctrl = N1(lp_m_cp) + (N1(log_rho_c) + lp_p_sel) + N1(lp_k_ctrlcp)
     ctrl_regime = torch.where(shift_mask, st.sA, st.sA1)
-    obs_ctrl = torch.where(shift_mask, row_c[:-1, None], row_c[1:, None]) + N1(obs_k_anck)
+    obs_ctrl = torch.where(shift_mask, row_c[..., :-1, None], row_c[..., 1:, None]) + N1(obs_k_anck)
 
     # ---- case-CP (R-1 slots): c = (0, d_c+1, r_c, 1, enum\{r_c}) ---------
     shift_mask_k = st.sA < N1(r_c)
@@ -416,7 +423,7 @@ def expand_score_and_observe_stacked(params: TwoGroupParams, anc, row_c, row_k):
         N1(in_b), st.neg_log_rm1, lp_unif2_case + N1(torch.where(in_c, zero, log_rho_k))
     )
     lp_case = N1(lp_m_cp + lp_c_cont) + lp_k_case
-    obs_case = N1(obs_c_anc) + torch.where(shift_mask_k, row_k[:-1, None], row_k[1:, None])
+    obs_case = N1(obs_c_anc) + torch.where(shift_mask_k, row_k[..., :-1, None], row_k[..., 1:, None])
 
     # ---- merge (slot 2R-1): c = (1, md, r_c, md, r_c), md = m_p?0:d_c+1 ---
     d_c1 = d_c + 1
@@ -440,7 +447,7 @@ def expand_score_and_observe_stacked(params: TwoGroupParams, anc, row_c, row_k):
         st.I_m1, zero, lp_unif2_ind + torch.where(~ne_rk_c & N1(m0), zero, N1(log_rho_k))
     )
     lp_ind = lp_m_ind + lp_c_ind + lp_k_ind
-    obs_ind = (row_c[st.I_rc] + row_k[st.I_rk])[:, None]
+    obs_ind = (row_c[..., st.I_rc] + row_k[..., st.I_rk])[..., None]
 
     # ---- assemble (..., I, M) -------------------------------------------
     trans_lp = torch.cat([N1(lp_cont), lp_ctrl, lp_case, N1(lp_merge), lp_ind], dim=-2)

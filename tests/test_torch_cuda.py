@@ -233,3 +233,65 @@ def test_single_group_engine_on_the_card_goes_through_the_kernel(device):
     assert bool(torch.isfinite(res.theta_trace).all())
     assert bool(res.regime_valid.all())
     torch.testing.assert_close(res.regime_probs.sum(-1), torch.ones((2, T), device=device), atol=1e-4, rtol=0)
+
+
+def test_xla_f32_functions_bit_identical_to_the_cpu(device):
+    """ops/xla_f32.py's exp, log, log1p, lgamma, digamma (XLA's CPU f32
+    kernels replayed, FMAs by exact emulation): the card's bits are the
+    CPU's on the tables' arguments and a broad sweep."""
+    from hygeia_tpu_torch.ops import xla_f32
+
+    rng = np.random.default_rng(5)
+    d = np.arange(4096, dtype=np.float32)
+    lg = np.concatenate([d + 2.0, d + 1.0, rng.uniform(0.5, 1e4, 50000)]).astype(np.float32)
+    args = {
+        "exp": (rng.normal(size=50000) * 40).astype(np.float32),
+        "log": np.exp(rng.normal(size=50000) * 20).astype(np.float32),
+        "log1p": rng.uniform(-0.99, 3, 50000).astype(np.float32),
+        "lgamma": lg,
+        "digamma": lg,
+    }
+    for name, x in args.items():
+        fn = getattr(xla_f32, name)
+        cpu = fn(torch.from_numpy(x))
+        card = fn(torch.from_numpy(x).to(device)).cpu()
+        assert torch.equal(cpu.view(torch.int32), card.view(torch.int32)), name
+
+
+def test_streamed_equals_monolithic_on_the_card(device):
+    """T=300, W=64 (5 blocks), U=4, f32 at the production width M=50: the
+    streamed trajectories and logZ are the monolithic ones bit for bit,
+    every re-run equals its checkpoint, and the kernel runs
+    2T - len_last - 2 times."""
+    from hygeia_tpu_torch.ops.emissions import emission_log_prob_table
+    from hygeia_tpu_torch.two_group.backward import backward_simulation
+    from hygeia_tpu_torch.two_group.filter import run_filter
+    from hygeia_tpu_torch.two_group.model import make_params
+    from hygeia_tpu_torch.two_group.streaming import launches_per_call, streamed_inference
+
+    R, T, M, B, U, W = 6, 300, 50, 25, 4, 64
+    rng = np.random.default_rng(3)
+    params = make_params(
+        mu=[0.95, 0.05, 0.80, 0.20, 0.50, 0.50], sigma=[0.05, 0.05, 0.1, 0.1, 0.1, 0.2886751],
+        p_softmax_control=np.zeros((R, R)), omega_logit_control=np.full(R, 4.0), omega_case=0.8,
+        kappa_control=np.full(R, 2.0), kappa_case=np.full(R, 2.0), merge_log_prob=np.log(0.1),
+        split_prob=0.01, minimum_duration=3, d_max=T + 1, device=device,
+    )
+    n = rng.poisson(20, size=(T, 2))
+    E_c = emission_log_prob_table(rng.binomial(n, 0.7), n, params.alpha, params.beta)
+    E_k = emission_log_prob_table(rng.binomial(n, 0.3), n, params.alpha, params.beta)
+
+    def gen(s):
+        return torch.Generator(device=device).manual_seed(s)
+
+    res = run_filter(params, E_c, E_k, M, n_units=U, generator=gen(1))
+    traj = backward_simulation(params, res.log_weights, res.particles, B, generator=gen(2)).cpu().numpy()
+    timings = {}
+    before = cr.KERNEL.launches
+    got, log_z, degen = streamed_inference(params, E_c, E_k, M, B, n_units=U, generator=gen(1),
+                                           backward_generator=gen(2), block_size=W, timings=timings)
+    assert cr.KERNEL.launches - before == launches_per_call(T, W) == 2 * T - (T - 4 * W) - 2
+    np.testing.assert_array_equal(got, traj)
+    assert torch.equal(log_z, res.log_normalizing_constant)
+    assert torch.equal(degen, res.degenerate_steps)
+    assert timings["rerun_equals_checkpoint"] == [True] * 4

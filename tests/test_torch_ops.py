@@ -6,13 +6,16 @@ lgamma differ in the last bits, and a log-pmf near 0 is a sum of nine
 lgamma terms of size ~100 that cancel); make_params rtol 1e-10 (the hazard
 table divides two such values through exp); the f32 hazard table rtol 1e-3
 where both are finite (f32 lgamma rounding amplified by the
-survival-function ratio).
+survival-function ratio). XLA's CPU float32 exp, log, log1p, lgamma and
+digamma (ops/xla_f32.py): bit for bit.
 """
 
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
+from jax.scipy.special import digamma as j_digamma, gammaln as j_gammaln
 
 from hygeia_tpu.ops import distributions as jd
 from hygeia_tpu.ops import hazard as jh
@@ -21,6 +24,7 @@ from hygeia_tpu.ops.hazard import rho_two_group as j_rho
 from hygeia_tpu.two_group.model import make_params as j_make_params
 from hygeia_tpu_torch.ops import distributions as td
 from hygeia_tpu_torch.ops import hazard as th
+from hygeia_tpu_torch.ops import xla_f32
 from hygeia_tpu_torch.ops.emissions import emission_log_prob_table as t_emission
 from hygeia_tpu_torch.ops.hazard import gather_rho, rho_two_group as t_rho
 from hygeia_tpu_torch.two_group.model import make_params as t_make_params
@@ -210,3 +214,44 @@ def test_ieee_elementary_functions_match_libm():
     assert np.isnan(th._log64(_t([-1.0, np.nan])).numpy()).all()
     assert th._exp64(_t([-np.inf, np.inf])).tolist() == [0.0, np.inf]
     assert th._log1p64(_t([-1.0])).tolist() == [-np.inf]
+
+
+def _table_inputs():
+    """The float32 arguments the single-group tables hand each function:
+    d + kappa, kappa and d + 1 for d < 4096 at kappa 2 and at seeded free
+    kappa; omega and -omega over the seeded range; the log-pmf values; and
+    the logits that make omega and kappa."""
+    rng = np.random.default_rng(7)
+    logit_om = np.concatenate([np.log(0.99 / 0.01) + np.array([0.0]),
+                               rng.normal(scale=0.5, size=600) + rng.uniform(1.5, 5.5, 600)])
+    log_kap = np.concatenate([[np.log(2.0)], np.log(2.0) + rng.normal(scale=0.5, size=60)])
+    om = np.asarray(jd.inv_logit(jnp.asarray(logit_om, jnp.float32)))
+    kap = np.asarray(jnp.exp(jnp.asarray(log_kap, jnp.float32)))
+    d = np.arange(4096, dtype=np.float32)
+    lg_args = np.concatenate([(d[None, :] + kap[:, None]).ravel(), kap, d + 1.0])
+    lp = np.asarray(jd.neg_binomial_log_pmf(jnp.asarray(d[None, :]), jnp.asarray(kap[:8, None]),
+                                            jnp.asarray(om[::75, None])[:, None]))
+    exp_args = np.concatenate([lp[np.isfinite(lp)], -logit_om, log_kap,
+                               rng.normal(size=20000) * 40]).astype(np.float32)
+    broad = np.exp(rng.normal(size=20000) * 20).astype(np.float32)
+    return {
+        "exp": exp_args,
+        "log": np.concatenate([om, broad, [0.0, np.inf, -1.0]]).astype(np.float32),
+        "log1p": np.concatenate([-om, 1 / (1 + np.exp(-logit_om)) - 1, rng.uniform(-0.99, 3, 20000)]
+                                ).astype(np.float32),
+        "lgamma": np.concatenate([lg_args, rng.uniform(0.5, 1e4, 20000)]).astype(np.float32),
+        "digamma": np.concatenate([lg_args, rng.uniform(0.5, 1e4, 20000)]).astype(np.float32),
+    }
+
+
+@pytest.mark.parametrize("name, jax_fn", [("exp", jnp.exp), ("log", jnp.log), ("log1p", jnp.log1p),
+                                          ("lgamma", j_gammaln), ("digamma", j_digamma)])
+def test_xla_f32_functions_are_jax_cpu_bit_for_bit(name, jax_fn):
+    """ops/xla_f32.py replays XLA's CPU float32 kernels (FMA contractions
+    included): the same bits as jnp's on every input the tables use."""
+    x = _table_inputs()[name]
+    want = np.asarray(jax.jit(jax_fn)(jnp.asarray(x)))
+    got = getattr(xla_f32, name)(torch.from_numpy(x)).numpy()
+    assert got.dtype == np.float32
+    same = (got.view(np.int32) == want.view(np.int32)) | (np.isnan(got) & np.isnan(want))
+    assert same.all(), (x[~same][:5], got[~same][:5], want[~same][:5])
