@@ -2,9 +2,10 @@
 """Smoke test of the PyTorch port (hygeia_tpu_torch) on one CUDA GPU.
 
     python3 chip_smoke.py                                       # the full check
-    python3 chip_smoke.py --sites 30000 --buffer 5000           # infer's segment as long as it has been
+    python3 chip_smoke.py --chrom_sites 105000                  # phase 5's chromosome as long as it was
     python3 chip_smoke.py --chrom_sites 3300 --sites 3000 --buffer 300 --stream_block 512 \
-        --chrom2_sites 3000                                     # a quick look
+        --chrom2_sites 3000 --robust_sites 600 --robust_buffer 60 --theta_block 1024 \
+        --theta_halo 128 --theta_warmup 1024 --pipeline_sites 2600   # a quick look
 
 Phases, each of which raises (exit code non-zero) when it fails:
 
@@ -20,8 +21,9 @@ Phases, each of which raises (exit code non-zero) when it fails:
      growth-phase weights (the first 6(t+1) slots live, t = 1, 20, 40), 8
      trials of Gumbel weights, an exact ties case;
    - two-group M=150 (N=7200), past the old 128-slot bound;
-   then timed at U=1 for both main shapes, at U=32 for the two-group one
-   and at N=7200, M=150: per call through the wrapper (CUDA events over 100
+   then timed at U=1 for both main shapes, at U=32 for the two-group one,
+   at U=48 for the single-group one (the blocked theta stage's units) and
+   at N=7200, M=150: per call through the wrapper (CUDA events over 100
    calls, beside the plain version), the card's time per launch (launches
    into preallocated outputs through the C entry, queued behind a spin on
    the card), the wrapper's host time per enqueue (1,000 calls, no
@@ -33,10 +35,10 @@ Phases, each of which raises (exit code non-zero) when it fails:
    rho, exit latch and gradient tables, and latch onsets equal to the JAX
    package's f32 tables' on the CPU (pinned here, JAX_ONSETS; the card's
    machine has no JAX, tests/test_torch_single_group.py holds the pin);
-5. a seeded reference-format chromosome of 105,000 CpGs is written to a
+5. a seeded reference-format chromosome of 40,000 CpGs is written to a
    temporary directory: 2 control + 2 case samples for ``infer`` and the
    two control samples as headed CSVs for the single-group engine, which
-   reads all of it;
+   reads all of it (cut from 105,000, so that phases 10-12 fit);
 6. ``hygeia_tpu_torch.cli estimate_parameters_and_regimes`` on the control
    samples (N=250, M_cap=244, S_cap=128, D=36, both estimates on, f32),
    with checks on its output files, logZ, the theta trace, the kernel's
@@ -62,7 +64,35 @@ Phases, each of which raises (exit code non-zero) when it fails:
    sites in groups of 2, 8 and 2 units. Every (batch, seed) file's name,
    shape and dtype, logZ finite, no degenerate step, the split probability
    higher inside the DMRs than outside, and launches equal to the sum of
-   the per-chunk formula; sites x units per second is printed.
+   the per-chunk formula; sites x units per second is printed;
+10. ``infer --robust`` through the CLI on batch 0 of phase 5's chromosome
+   (segment 3,000 + halo 300, one seed, phase 6's theta): the robust
+   emission table built on the card against the float64 table on the CPU
+   (rtol 1e-5, float32), logZ finite and not that of a BetaBinomial run of
+   the same window, no degenerate step, T - 1 launches, the split
+   probability higher inside the DMRs than outside;
+11. ``single_group.blocked.run_online_combined_inference_blocked`` on phase
+   5's 40,000 control CpGs at the CLI's defaults (N=250, M_cap=244, both
+   estimates on, f32), block 8,192 + halo 1,024 and a warmup of 8,192
+   sites (cut from the production 49,152 / 4,096 / 65,536 for time): 5
+   blocks, (Tw - 1) + (win - 1) launches (one launch serves every block),
+   the warmup's theta trace equal to phase 6's first Tw rows bit for bit
+   (the same generator), regime modes agreeing with phase 6's on more than
+   95% of the sites where either run is confident (max probability > 0.9;
+   the bound of tests/test_blocked_engine.py), the final theta nearer phase
+   6's than the starting theta is (max |difference| of omega and of P:
+   both chains moved the same way), the planted stretches recovered; then
+   the engine's ms per site over 300 sites at U = 1, 8 and 48;
+12. ``hygeia_tpu_torch.cli run --two_group`` from BED files written here (a
+   CpG list and 2 control + 2 case samples of a third chromosome "3" of
+   13,000 CpGs with 10 case-only DMR windows of 300 sites), batches of
+   6,000 + halo 600 (3 batches), 2 seeds, the default FDR thresholds,
+   sequential theta: the stage tree 1_PREPROCESS/ .. 6_GET_DMPS/ with the
+   JAX orchestrator's file names, aggregate tables of 13,000 rows x 50
+   trajectories, (T - 1) + sum over batches of (window - 1) launches (one
+   launch a site serves both seeds), weighted_dmp_0.05.csv non-empty with
+   at least half its positions in planted windows (recall printed); a
+   second invocation runs no stage again.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc;
@@ -89,6 +119,7 @@ R = 6
 MU = (0.95, 0.05, 0.80, 0.20, 0.50, 0.50)
 SIGMA = (0.05, 0.05, 0.1, 0.1, 0.1, 0.2886751)
 SG_MU = (0.99, 0.01, 0.80, 0.20, 0.50, 0.50)  # the single-group CLI's defaults
+SG_SIGMA = (0.05, 0.05, 0.20, 0.20, 0.20, 0.2886751)
 SG_N = 250  # the single-group CLI's --n_particles default: M_cap = N - R
 # The JAX package's f32 exit-latch onsets at the CLI defaults (d_max 4096;
 # None: no latch), as its CPU computes the tables; the port's f32 tables
@@ -105,6 +136,13 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def _sync(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def card_line():
@@ -313,6 +351,7 @@ def kernel_phase(device, seed=0):
         "two_group": timed(1, N, M),
         "two_group_u32": timed(U, N, M),
         "two_group_m150": timed(1, N_big, M_big),
+        "single_group_u48": timed(48, N_sg, M_sg),
     }
     return max_err, times
 
@@ -330,7 +369,7 @@ def hazard_phase(device):
     np.fill_diagonal(p, 0.0)
     omega = np.array([0.995, 0.975, 0.950, 0.925, 0.900, 0.900])
     kappa = np.full(R, 2.0)
-    sigma = (0.05, 0.05, 0.20, 0.20, 0.20, 0.2886751)
+    sigma = SG_SIGMA
     onsets = {}
     for kappa_fixed in (True, False):
         theta = parameters_to_theta(p, omega, kappa, kappa_fixed=kappa_fixed)
@@ -405,6 +444,60 @@ def make_dataset(root, n_sites, seed=0, n_dmr=20, dmr_len=300, chrom="1"):
     hio.write_headed_matrix(os.path.join(sg_in, "n_total_reads_1.csv"), n_c.T, "sample")
     hio.write_headed_column(os.path.join(sg_in, "genomic_positions_1.csv"), positions, "genomic_positions")
     return data_dir, sg_dir, dmr, regime
+
+
+def make_bed_dataset(root, n_sites, seed=3, chrom="3", n_dmr=10, dmr_len=300):
+    """The pipeline phase's input: a tab-separated CpG list (seqID, start)
+    and 2 control + 2 case BED methylation files of a seeded chromosome,
+    regimes and counts drawn as ``make_dataset`` draws them, with case-only
+    DMR windows. A third of the sites carry both strands (the counts split
+    between a + and a - record), the rest a + record; sites without reads
+    have no record. Returns (CpG file, control BEDs, case BEDs, DMR mask,
+    0-based positions)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.geometric(1 / 250, size=n_sites)
+    regime = np.repeat(rng.integers(0, R, size=lengths.size), lengths)[:n_sites]
+    case_regime = regime.copy()
+    dmr = np.zeros(n_sites, bool)
+    candidates = np.arange(500, n_sites - dmr_len - 500, dmr_len * 2)
+    for s in rng.choice(candidates, min(n_dmr, candidates.size), replace=False):
+        w = slice(s, s + dmr_len)
+        case_regime[w] = np.where(np.asarray(MU)[regime[w]] >= 0.5, 1, 0)
+        dmr[w] = True
+    mu, sd = np.asarray(MU), np.asarray(SIGMA)
+    nu = mu * (1 - mu) / sd**2 - 1
+    a, b = mu * nu, (1 - mu) * nu
+    pos0 = np.cumsum(rng.integers(2, 200, size=n_sites)) + 10_000
+    os.makedirs(root, exist_ok=True)
+    cpg = os.path.join(root, f"cpg_{chrom}.tsv")
+    with open(cpg, "w") as f:
+        f.write("seqID\tstart\n" + "".join(f"{chrom}\t{p + 1}\n" for p in pos0))
+
+    def bed(path, reg):
+        level = rng.beta(a[reg], b[reg])
+        n = rng.poisson(20, size=n_sites)
+        y = rng.binomial(n, level)
+        split = rng.random(n_sites) < 1 / 3
+        n_minus = np.where(split, n // 2, 0)
+        y_minus = np.minimum(y, n_minus)
+        lines = ["track name=smoke"]
+        for i in np.flatnonzero(n > 0):
+            p = int(pos0[i])
+            for strand, start, cov, meth in (("+", p, n[i] - n_minus[i], y[i] - y_minus[i]),
+                                             ("-", p + 1, n_minus[i], y_minus[i])):
+                if cov > 0:
+                    pct = repr(float(100.0 * meth / cov))
+                    lines.append(f"{chrom}\t{start}\t{start + 1}\t.\t0\t{strand}\t{start}\t{start + 1}"
+                                 f"\t0,0,0\t{cov}\t{pct}\tCG\tCG\t30")
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        return path
+
+    controls = [bed(os.path.join(root, f"control_{i}.bed"), regime) for i in range(2)]
+    cases = [bed(os.path.join(root, f"case_{i}.bed"), case_regime) for i in range(2)]
+    return cpg, controls, cases, dmr, pos0
 
 
 def single_group_phase(device, root, regime):
@@ -715,16 +808,252 @@ def chromosome_phase(device, root, n_sites, seed=1):
     return stats, launches
 
 
+def robust_phase(device, root, data_dir, sg_dir, dmr, segment_size, buffer_size, seed=0):
+    """infer --robust through the CLI on batch 0 of phase 5's chromosome
+    (segment ``segment_size`` + halo ``buffer_size``, one seed, phase 6's
+    theta): the robust table built on the card against the float64 table on
+    the CPU (rtol 1e-5, float32), and the run against a non-robust run of
+    the same window. Returns (stats, launches of the robust run)."""
+    import numpy as np
+    import torch
+    from hygeia_tpu_torch import cli
+    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
+    from hygeia_tpu_torch.ops.distributions import mu_sigma_to_alpha_beta
+    from hygeia_tpu_torch.ops.emissions import robust_emission_log_prob_table
+    from hygeia_tpu_torch.utils import io as hio
+
+    T, N = segment_size + buffer_size, 50 * (2 * R + R * R)
+    y = hio.read_count_matrix(os.path.join(data_dir, "n_methylated_reads_control_1.txt.gz"))[:T]
+    n = hio.read_count_matrix(os.path.join(data_dir, "n_total_reads_control_1.txt.gz"))[:T]
+    tables = []
+    for dev, dtype in ((torch.device("cpu"), torch.float64), (device, torch.float32)):
+        a, b = mu_sigma_to_alpha_beta(torch.tensor(MU, dtype=dtype, device=dev),
+                                      torch.tensor(SIGMA, dtype=dtype, device=dev))
+        tables.append(robust_emission_log_prob_table(y, n, a, b, dtype=dtype).cpu().double())
+    rel = float(((tables[1] - tables[0]).abs() / tables[0].abs()).max())
+    check(rel <= 1e-5, f"robust: the card's f32 table is {rel:.3g} off the f64 CPU table (rtol 1e-5)")
+
+    def run(name, extra):
+        argv = ["infer", "--data_dir", data_dir, "--single_group_dir", sg_dir, "--results_dir",
+                os.path.join(root, name), "--chrom", "1", "--segment_size", str(segment_size),
+                "--buffer_size", str(buffer_size), "--batch", "0", "--seed", str(seed),
+                "--device", str(device), *extra]
+        KERNEL.launches = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            log_z = cli.main(argv)[N]
+        return log_z, time.perf_counter() - t0, KERNEL.launches, out.getvalue()
+
+    log_z, wall, launches, text = run("results_robust", ["--robust"])
+    plain_log_z, plain_wall, _, _ = run("results_robust_plain", [])
+    path = os.path.join(root, "results_robust", "chrom_1_0")
+    split = np.load(os.path.join(path, f"optimal_split_probs_{N}_{seed}.npz"))["arr_0"]
+    check(math.isfinite(log_z), f"robust: logZ not finite: {log_z}")
+    check(log_z != plain_log_z, "robust: logZ equals the non-robust run's")
+    check(f"seed {seed}: degenerate_steps=0" in text, "robust: degenerate filter steps")
+    check(launches == T - 1, f"robust: kernel launched {launches} times for T={T} sites")
+    check("--robust=True" in open(os.path.join(path, f"flags{seed}.txt")).read(), "robust: flags lack --robust")
+    in_dmr, out_dmr = float(split[dmr[:T]].mean()), float(split[~dmr[:T]].mean())
+    check(in_dmr > out_dmr, f"robust: split probability in DMRs {in_dmr:.3f} <= outside {out_dmr:.3f}")
+    stats = {"sites": T, "logZ": log_z, "logZ_plain": plain_log_z, "wall_s": wall, "plain_wall_s": plain_wall,
+             "table_max_rel_err": rel, "split_in_dmr": in_dmr, "split_outside": out_dmr,
+             "launches_per_site": launches / (T - 1)}
+    print(f"robust: T={T} table on the card vs f64 CPU max rel err {rel:.3g}; logZ {log_z:.3f} (BetaBinomial "
+          f"{plain_log_z:.3f}); launches={launches}; {wall:.2f} s (BetaBinomial {plain_wall:.2f} s); split prob "
+          f"in DMRs {in_dmr:.3f} vs outside {out_dmr:.3f}")
+    return stats, launches
+
+
+def blocked_phase(device, root, regime, block_size, halo, warmup_sites, seed=0):
+    """single_group.blocked on phase 5's control CpGs at the CLI's defaults
+    (phase 6's model, theta_init and generator seed), then the engine's ms
+    per site at U = 1, 8 and 48. Returns (stats, launches of the blocked
+    call)."""
+    import numpy as np
+    import torch
+    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
+    from hygeia_tpu_torch.ops.emissions import emission_log_prob_table
+    from hygeia_tpu_torch.single_group.blocked import run_online_combined_inference_blocked
+    from hygeia_tpu_torch.single_group.engine import EngineConfig, run_online_combined_inference
+    from hygeia_tpu_torch.single_group.model import make_model, theta_to_parameters
+    from hygeia_tpu_torch.utils import io as hio
+
+    sg_in, sg_dir = os.path.join(root, "single_group_input"), os.path.join(root, "single_group")
+    n_meth = hio.read_headed_matrix(os.path.join(sg_in, "n_methylated_reads_1.csv")).T
+    n_total = hio.read_headed_matrix(os.path.join(sg_in, "n_total_reads_1.csv")).T
+    T = n_total.shape[0]
+    model = make_model(SG_MU, SG_SIGMA, 2, [2.0] * R, device=device)
+    E = emission_log_prob_table(n_meth, n_total, model.alpha, model.beta)
+    theta0 = torch.randn((model.dim_theta,), generator=torch.Generator().manual_seed(seed), dtype=torch.float64)
+    cfg = EngineConfig(n_particles_max=SG_N, estimate_regimes=True, estimate_parameters=True)
+    tim = {}
+    KERNEL.launches = 0
+    t0 = time.perf_counter()
+    res = run_online_combined_inference_blocked(
+        model, theta0.numpy(), E, cfg, block_size=block_size, halo=halo, warmup_sites=warmup_sites,
+        generator=torch.Generator(device=device).manual_seed(seed), timings=tim)
+    wall = time.perf_counter() - t0
+    launches = KERNEL.launches
+    n_blocks, win, Tw = -(-T // block_size), block_size + halo, min(T, warmup_sites)
+    check(n_blocks >= 2 and T >= win, f"blocked: {T} sites make {n_blocks} blocks of {block_size}")
+    want = (Tw - 1) + (win - 1)
+    check(launches == want, f"blocked: kernel launched {launches} times, (Tw - 1) + (win - 1) = {want}")
+    probs, trace = res.regime_probs, res.theta_trace
+    check(probs.shape == (T, R) and bool(np.isfinite(probs).all()), "blocked: regime probabilities")
+    check(np.allclose(probs.sum(1), 1, atol=1e-4), "blocked: regime probabilities do not sum to 1")
+    check(bool(np.isfinite(trace).all()) and math.isfinite(res.log_normalizing_constant), "blocked: non-finite")
+    # The warmup takes the draws of phase 6's generator: its trace is phase
+    # 6's first Tw rows bit for bit.
+    seq_trace = hio.read_headed_table(os.path.join(sg_dir, "theta_trace_1.csv"))[1].astype(np.float32)
+    check(np.array_equal(trace[:Tw], seq_trace[:Tw]), "blocked: the warmup's trace is not phase 6's prefix")
+    seq_probs = hio.read_headed_table(os.path.join(sg_dir, "regime_probs_1.csv"))[1][:, 1:]
+    conf = (probs.max(1) > 0.9) | (seq_probs.max(1) > 0.9)
+    agree = float((probs.argmax(1) == seq_probs.argmax(1))[conf].mean())
+    check(agree > 0.95, f"blocked: regime modes agree with the sequential run on {agree:.3f} of confident sites")
+    # The final theta lies nearer phase 6's than the start does, in P and in
+    # omega (max |difference|): both chains moved the same way.
+    fin_b, fin_s, start = (theta_to_parameters(np.asarray(th, np.float64), R)
+                           for th in (trace[-1], seq_trace[-1], theta0.numpy()))
+    d_omega = float(np.abs(fin_b["omega"] - fin_s["omega"]).max())
+    d_p = float(np.abs(fin_b["p"] - fin_s["p"]).max())
+    d0_omega = float(np.abs(start["omega"] - fin_s["omega"]).max())
+    d0_p = float(np.abs(start["p"] - fin_s["p"]).max())
+    check(d_omega < d0_omega and d_p < d0_p,
+          f"blocked: final theta |omega diff| {d_omega:.3g} (start {d0_omega:.3g}), |P diff| {d_p:.3g} "
+          f"(start {d0_p:.3g}) from phase 6's")
+    level = probs @ np.asarray(SG_MU)
+    mu_true = np.asarray(MU)[regime]
+    hi, lo = float(level[mu_true >= 0.8].mean()), float(level[mu_true <= 0.2].mean())
+    check(hi - lo >= 0.5, f"blocked: mean level over high stretches {hi:.3f} vs low {lo:.3f}")
+
+    sweep = {}
+    for units in (1, 8, 48):
+        E_u = E[:300].expand(units, 300, R).contiguous()
+        gen = torch.Generator(device=device).manual_seed(seed)
+        run_online_combined_inference(model, theta0.numpy(), E_u[:, :20], cfg, n_units=units, generator=gen)
+        _sync(device)
+        t1 = time.perf_counter()
+        run_online_combined_inference(model, theta0.numpy(), E_u, cfg, n_units=units, generator=gen)
+        _sync(device)
+        sweep[units] = 1e3 * (time.perf_counter() - t1) / 299
+    stats = {"sites": T, "blocks": n_blocks, "window": win, "warmup_sites": Tw, "wall_s": wall,
+             "warmup_s": tim["warmup_s"], "blocks_s": tim["blocks_s"], "mode_agreement": agree,
+             "confident_sites": int(conf.sum()), "d_omega": d_omega, "d_p": d_p, "d_omega_start": d0_omega,
+             "d_p_start": d0_p, "level_high": hi,
+             "level_low": lo, "logZ_windows": res.log_normalizing_constant,
+             "ms_per_site_by_units": sweep, "launches_per_site": launches / (T - 1)}
+    print(f"blocked: T={T} in {n_blocks} blocks of {block_size} + halo {halo}, warmup {Tw}: launches={launches}; "
+          f"warmup {tim['warmup_s']:.2f} s, blocks {tim['blocks_s']:.2f} s, wall {wall:.2f} s; warmup trace = "
+          f"phase 6's prefix; modes agree on {agree:.3f} of {int(conf.sum())} confident sites; final theta "
+          f"|omega diff| {d_omega:.3g} (start {d0_omega:.3g}), |P diff| {d_p:.3g} (start {d0_p:.3g}); level high {hi:.3f} vs low {lo:.3f}; engine ms/site "
+          f"over 300 sites at U=1, 8, 48: {', '.join(f'{v:.3f}' for v in sweep.values())}")
+    return stats, launches
+
+
+def pipeline_phase(device, root, n_sites, batch_size=6000, buffer_size=600, seeds=2):
+    """run --two_group through the CLI from BED files of a third seeded
+    chromosome "3", then again to check that nothing runs twice. Returns
+    (stats, launches of the first run)."""
+    import numpy as np
+    from hygeia_tpu_torch import cli
+    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
+    from hygeia_tpu_torch.two_group.runner import segment_window
+    from hygeia_tpu_torch.utils import io as hio
+
+    cpg, controls, cases, dmr, pos0 = make_bed_dataset(os.path.join(root, "bed"), n_sites, chrom="3")
+    out = os.path.join(root, "pipeline")
+    argv = ["run", "--two_group", "--output_dir", out, "--chroms", "3", "--cpg_file_path", cpg,
+            "--batch_size", str(batch_size), "--buffer_size", str(buffer_size),
+            "--num_of_inference_seeds", str(seeds), "--device", str(device)]
+    for flag, paths, prefix in (("control", controls, "c"), ("case", cases, "k")):
+        for i, p in enumerate(paths):
+            argv += [f"--{flag}_data_path", p, f"--{flag}_id_names", f"{prefix}{i}"]
+    KERNEL.launches = 0
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        cli.main(argv)
+    wall = time.perf_counter() - t0
+    launches = KERNEL.launches
+
+    N, B = 50 * (2 * R + R * R), 25
+    n_batches = 1 + n_sites // batch_size
+    windows = [len(segment_window(n_sites, b, batch_size, buffer_size)[0]) for b in range(n_batches)]
+    check(all(w > 0 for w in windows), f"pipeline: an empty batch in {windows}")
+    want = (n_sites - 1) + sum(w - 1 for w in windows)
+    check(launches == want, f"pipeline: kernel launched {launches} times, (T - 1) + sum(window - 1) = {want}")
+    names = [f"1_PREPROCESS/3/{n}_3.txt.gz" for n in ("positions", "cpg_sites_merged", "n_methylated_reads_control",
+                                                      "n_total_reads_control", "n_methylated_reads_case",
+                                                      "n_total_reads_case")]
+    names += [f"2_ESTIMATE_PARAMETERS_AND_REGIMES/3/{n}_3.csv.gz" for n in ("theta", "theta_trace", "p", "omega",
+                                                                           "kappa", "regime_probabilities")]
+    names += ["3_GET_CHROM_SEGMENTS/3/chrom_segments_3.csv"]
+    for b in range(n_batches):
+        names += [f"4_INFER/chrom_3_{b}/optimal_backward_particles_{k}_state_{N}_{s}.npz"
+                  for k in ("merged", "control", "case") for s in range(seeds)]
+        names += [f"4_INFER/unit_3_{b}/.done"]
+    names += [f"5_AGGREGATE_RESULTS/3/{n}" for n in (
+        "split_probs_3.csv.gz", "merge_states_chrom_3.csv.gz", "control_regimes_chrom_3.csv.gz",
+        "case_regimes_chrom_3.csv.gz", "control_durations_chrom_3.csv.gz", "case_durations_chrom_3.csv.gz",
+        "n_total_reads_control_chrom_3.csv.gz", "n_total_reads_case_chrom_3.csv.gz",
+        "n_meth_reads_control_chrom_3.csv.gz", "n_meth_reads_case_chrom_3.csv.gz")]
+    names += [f"6_GET_DMPS/3/{p}dmp_{t}.csv" for p in ("", "weighted_") for t in (0.01, 0.05)]
+    names += ["trace.tsv", "versions.yml", "timeline.html", "report.html", "dag.dot"]
+    for name in names:
+        check(os.path.exists(os.path.join(out, name)), f"pipeline: missing {name}")
+    agg = os.path.join(out, "5_AGGREGATE_RESULTS", "3")
+    for name in ("control_regimes_chrom_3.csv.gz", "case_regimes_chrom_3.csv.gz", "merge_states_chrom_3.csv.gz"):
+        header, index, table = hio.read_int_table(os.path.join(agg, name))
+        check(table.shape == (n_sites, seeds * B) and header[0] == "pos", f"pipeline: {name} {table.shape}")
+    check(np.array_equal(index, pos0), "pipeline: the aggregate index is not the CpG positions")
+    rows = [r.split("\t") for r in open(os.path.join(out, "trace.tsv")).read().splitlines()[1:]]
+    check(all(r[5] == "ok" for r in rows), f"pipeline: stages not ok: {rows}")
+    stage_s = {f"{r[0]}": float(r[2]) for r in rows}
+    with open(os.path.join(out, "6_GET_DMPS", "3", "weighted_dmp_0.05.csv")) as f:
+        lines = f.read().splitlines()
+    called = np.array([int(ln.split(",")[1]) for ln in lines[1:]], np.int64)
+    check(called.size > 0, "pipeline: weighted_dmp_0.05.csv is empty")
+    site = np.searchsorted(pos0, called)
+    precision = float(dmr[site].mean())
+    recall = float(np.isin(np.flatnonzero(dmr), site).mean())
+    check(precision >= 0.5, f"pipeline: {precision:.3f} of the called DMPs lie in planted windows")
+
+    t1 = time.perf_counter()
+    KERNEL.launches = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(argv)
+    wall2 = time.perf_counter() - t1
+    rows2 = [r.split("\t") for r in open(os.path.join(out, "trace.tsv")).read().splitlines()[1:]]
+    check(KERNEL.launches == 0 and all(r[3] == "True" for r in rows2),
+          f"pipeline: the resumed run ran stages again ({KERNEL.launches} launches, {rows2})")
+    check(wall2 < 0.1 * wall, f"pipeline: the resumed run took {wall2:.2f} s of the first's {wall:.2f} s")
+    stats = {"sites": n_sites, "batches": n_batches, "windows": windows, "seeds": seeds, "wall_s": wall,
+             "stage_s": stage_s, "dmps_weighted_0.05": int(called.size), "precision": precision, "recall": recall,
+             "resumed_wall_s": wall2, "launches_per_site": launches / (n_sites - 1 + sum(w - 1 for w in windows))}
+    print(f"pipeline: {n_sites} CpGs from BED files, {n_batches} batches x {seeds} seeds: launches={launches}; "
+          f"{wall:.2f} s, by stage {stage_s}; weighted_dmp_0.05: {called.size} positions, {precision:.3f} in planted "
+          f"windows, recall {recall:.3f}; resumed run {wall2:.2f} s, no stage again")
+    return stats, launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--chrom_sites", type=int, default=105_000,
-                    help="CpGs of the chromosome, all read by the single-group engine (default 105000)")
+    ap.add_argument("--chrom_sites", type=int, default=40_000,
+                    help="CpGs of the chromosome, all read by the single-group engine (default 40000)")
     ap.add_argument("--sites", type=int, default=10_000, help="infer's segment size (default 10000)")
     ap.add_argument("--buffer", type=int, default=1_000, help="infer's halo size (default 1000)")
     ap.add_argument("--stream_block", type=int, default=2048,
                     help="the streamed phase's --streaming_blocks (default 2048)")
     ap.add_argument("--chrom2_sites", type=int, default=11_000,
                     help="CpGs of the chromosome of the streamed chromosome phase (default 11000)")
+    ap.add_argument("--robust_sites", type=int, default=3_000, help="robust infer's segment size (default 3000)")
+    ap.add_argument("--robust_buffer", type=int, default=300, help="robust infer's halo size (default 300)")
+    ap.add_argument("--theta_block", type=int, default=8192, help="blocked theta's block size (default 8192)")
+    ap.add_argument("--theta_halo", type=int, default=1024, help="blocked theta's halo (default 1024)")
+    ap.add_argument("--theta_warmup", type=int, default=8192, help="blocked theta's warmup sites (default 8192)")
+    ap.add_argument("--pipeline_sites", type=int, default=13_000,
+                    help="CpGs of the pipeline phase's chromosome (default 13000; batches of 6000 + 600)")
     args = ap.parse_args(argv)
     if args.sites + args.buffer > args.chrom_sites:
         ap.error("the infer segment and halo must fit in the chromosome")
@@ -771,6 +1100,11 @@ def main(argv=None):
         st_stats, st_launches = streamed_phase(device, root, data_dir, sg_dir, args.sites, args.buffer, stats,
                                                args.stream_block)
         ch_stats, ch_launches = chromosome_phase(device, root, args.chrom2_sites)
+        rb_stats, rb_launches = robust_phase(device, root, data_dir, sg_dir, dmr, args.robust_sites,
+                                             args.robust_buffer)
+        bl_stats, bl_launches = blocked_phase(device, root, regime, args.theta_block, args.theta_halo,
+                                              args.theta_warmup)
+        pl_stats, pl_launches = pipeline_phase(device, root, args.pipeline_sites)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -780,17 +1114,21 @@ def main(argv=None):
         "two_group": "U=1 N=2400 M=50 (one seed per infer call)",
         "two_group_u32": "U=32 N=2400 M=50",
         "two_group_m150": "U=1 N=7200 M=150",
+        "single_group_u48": f"U=48 N={SG_N} M={SG_N - R} (blocked theta's units)",
     }
     print(json.dumps({"kernels": [{
         "name": "optimal_resampling",
         "route": "cuda",
         "source": "hygeia_tpu_torch/csrc/optimal_resampling.cu",
         "replaces": "hygeia_tpu/ops/pallas_resampling.py:50",
-        "launches": sg_launches + launches + st_launches + ch_launches,
+        "launches": sg_launches + launches + st_launches + ch_launches + rb_launches + bl_launches + pl_launches,
         "launches_single_group": sg_launches,
         "launches_two_group": launches,
         "launches_streamed": st_launches,
         "launches_chromosome": ch_launches,
+        "launches_robust": rb_launches,
+        "launches_blocked": bl_launches,
+        "launches_pipeline": pl_launches,
         # This run's counts per site, per path: over the resampling sites
         # (single group, two group), over the window's sites (streamed) and
         # over the sites of the chunks' windows (chromosome: one launch
@@ -798,7 +1136,10 @@ def main(argv=None):
         "launches_per_site": {"single_group": sg_stats["launches_per_site"],
                               "two_group": stats["launches_per_site"],
                               "streamed": st_stats["launches_per_site"],
-                              "chromosome": ch_stats["launches_per_site"]},
+                              "chromosome": ch_stats["launches_per_site"],
+                              "robust": rb_stats["launches_per_site"],
+                              "blocked": bl_stats["launches_per_site"],
+                              "pipeline": pl_stats["launches_per_site"]},
         "max_abs_err": max_err,
         # The top-level times are the single-group engine's shape.
         "shape": shapes["single_group"],
@@ -814,7 +1155,8 @@ def main(argv=None):
         **times["floor"],
         "by_shape": {k: {"shape": shapes[k], **times[k]} for k in shapes},
     }], "card": card, "hazard_onsets": onsets, "single_group": sg_stats, "slice": stats,
-        "streamed": st_stats, "chromosome": ch_stats}))
+        "streamed": st_stats, "chromosome": ch_stats, "robust": rb_stats, "blocked": bl_stats,
+        "pipeline": pl_stats}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -19,8 +19,11 @@ Subpackages
 ops           Distributions, hazard tables, emission tables, resampling, and
               the CUDA optimal resampler (``csrc/optimal_resampling.cu``).
 single_group  Single-group model and online engine (regime probabilities
-              and theta), the ``estimate_parameters_and_regimes`` runner.
+              and theta), its blocked form, the ``estimate_parameters_and_regimes``
+              runner.
 two_group     Case/control particle filter, backward simulation, INFER runner.
+pipeline      The two-group pipeline (``run --two_group``) and numpy ports of
+              its host stages: preprocess, segments, aggregate, DMP calling.
 utils         numpy+gzip readers and writers of the reference file formats.
 """
 

@@ -1,13 +1,22 @@
-"""The port's command-line interface: the ``estimate_parameters_and_regimes``
-and ``infer`` verbs.
+"""The port's command-line interface:
 
-    python -m hygeia_tpu_torch.cli estimate_parameters_and_regimes ... --device cuda
-    python -m hygeia_tpu_torch.cli infer --data_dir ... --device cuda
+  preprocess                        BED -> per-chromosome count matrices
+  get_chrom_segments                positions -> (chrom, segment_index) csv
+  infer                             two-group filter + backward simulation
+  aggregate                         merge per-(batch, seed) outputs
+  get_dmps                          FDR-controlled DMP calling
+  estimate_parameters_and_regimes   single-group online engine
+  run --two_group                   the two-group pipeline, resumable
 
-Same flags as the verbs of ``hygeia_tpu.cli``, plus ``--device`` (default
-``cuda``). There is no fallback: when the device asked for is not there,
-the command raises; it never carries on on the CPU. The CPU path exists for
-the tests, which pass ``--device cpu`` themselves.
+    python -m hygeia_tpu_torch.cli run --two_group --output_dir out --chroms 22 \\
+        --cpg_file_path cpg.tsv --control_data_path c.bed ... --device cuda
+
+Same flags and defaults as the verbs of ``hygeia_tpu.cli``; the verbs that
+run the model (``infer``, ``estimate_parameters_and_regimes``, ``run``)
+take ``--device`` (default ``cuda``). There is no fallback: when the device
+asked for is not there, the command raises; it never carries on on the CPU.
+The CPU path exists for the tests, which pass ``--device cpu`` themselves.
+The other verbs are host numpy work, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,8 +32,80 @@ def _csv_floats(s):
 
 
 def build_parser():
-    p = argparse.ArgumentParser(prog="hygeia_tpu_torch", description=__doc__)
+    p = argparse.ArgumentParser(prog="hygeia_tpu_torch", description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="verb", required=True)
+
+    sp = sub.add_parser("preprocess", help="BED -> count matrices")
+    sp.add_argument("--cpg_file_path", required=True)
+    sp.add_argument("--output_path", default="test")
+    sp.add_argument("--case_data_path", action="append", default=[])
+    sp.add_argument("--case_id_names", action="append", default=[])
+    sp.add_argument("--control_data_path", action="append", default=[])
+    sp.add_argument("--control_id_names", action="append", default=[])
+    sp.add_argument("--chromosome", default="22")
+    sp.add_argument("--format", choices=["bed", "gembs"], default="bed",
+                    help="input flavour: bismark BED; gemBS tab files are not ported yet (raises)")
+
+    sp = sub.add_parser("get_chrom_segments")
+    sp.add_argument("--input_file", required=True)
+    sp.add_argument("--chromosome", default="22")
+    sp.add_argument("--segment_size", type=int, default=100000)
+    sp.add_argument("--output_csv", default="chrom_segments.csv")
+
+    sp = sub.add_parser("aggregate")
+    sp.add_argument("--results_dir", required=True)
+    sp.add_argument("--output_dir", required=True)
+    sp.add_argument("--seeds", type=int, default=10)
+    sp.add_argument("--chrom", default="22")
+    sp.add_argument("--num_batches", type=int, default=30)
+    sp.add_argument("--num_particles", type=int, default=2400)
+    sp.add_argument("--compute_freqs", action="store_true")
+
+    sp = sub.add_parser("get_dmps")
+    sp.add_argument("--fdr_thresholds", type=float, action="append", default=None)
+    sp.add_argument("--results_dir", required=True)
+    sp.add_argument("--output_dir", required=True)
+    sp.add_argument("--n_regimes", type=int, default=6)
+    sp.add_argument("--chrom", default="21")
+    sp.add_argument("--test_regime_combinations", action="store_true")
+
+    sp = sub.add_parser("run", help="the pipeline; resumable")
+    sp.add_argument("--two_group", action="store_true")
+    sp.add_argument("--output_dir", required=True)
+    sp.add_argument("--chroms", type=lambda s: s.split(","), default=["chr21", "chr22"])
+    sp.add_argument("--cpg_file_path", default=None)
+    sp.add_argument("--preprocessed_dir", default=None)
+    sp.add_argument("--sample_sheet", default=None,
+                    help="CSV with id,file columns (single-group mode: not ported yet)")
+    sp.add_argument("--max_retries", type=int, default=5, help="per-unit retries before ignore")
+    sp.add_argument("--control_data_path", action="append", default=[])
+    sp.add_argument("--control_id_names", action="append", default=[])
+    sp.add_argument("--case_data_path", action="append", default=[])
+    sp.add_argument("--case_id_names", action="append", default=[])
+    sp.add_argument("--mu", type=_csv_floats, default=[0.95, 0.05, 0.80, 0.20, 0.50, 0.50])
+    sp.add_argument("--sigma", type=_csv_floats, default=[0.05, 0.05, 0.1, 0.1, 0.1, 0.2886751])
+    sp.add_argument("--min_cpg_sites_between_change_points", type=int, default=3)
+    sp.add_argument("--batch_size", type=int, default=100000, help="segment size in CpG sites")
+    sp.add_argument("--buffer_size", type=int, default=5000)
+    sp.add_argument("--num_of_inference_seeds", type=int, default=2)
+    sp.add_argument("--num_resampled_particles", type=int, default=50)
+    sp.add_argument("--num_samples_backward", type=int, default=25)
+    sp.add_argument("--n_particles", type=int, default=250)
+    sp.add_argument("--run_streaming_blocks", type=int, default=None,
+                    help="INFER units take the checkpointed streamed path in W-site blocks "
+                         "(see infer --streaming_blocks)")
+    sp.add_argument("--run_stream_batched", action="store_true",
+                    help="with --run_streaming_blocks: the whole chromosome's (batch x seed) units in "
+                         "shared streamed site loops (runner.infer_chromosome_streamed)")
+    sp.add_argument("--no_resume", action="store_true")
+    sp.add_argument("--bucket_dir", default=None, help="work-dir mirror: not ported yet (raises)")
+    sp.add_argument("--stub_run", action="store_true", help="wire the stage tree with empty outputs")
+    sp.add_argument("--mesh", default=None, metavar="GxS",
+                    help="INFER on a (genome x seed) device mesh: not ported yet (raises)")
+    sp.add_argument("--boundary", default="halo", choices=["halo", "exchange"],
+                    help="meshed-INFER block-join scheme (with --mesh)")
+    _add_device(sp)
 
     sp = sub.add_parser("infer", help="two-group inference on one segment")
     sp.add_argument("--mu", type=_csv_floats, default=[0.95, 0.05, 0.80, 0.20, 0.50, 0.50])
@@ -39,7 +120,7 @@ def build_parser():
                     help="recorded in the flags files; as in hygeia_tpu the optimal "
                          "resampler is always used (its fallback is multinomial)")
     sp.add_argument("--robust", action="store_true",
-                    help="robust (beta-divergence) emissions: not ported yet, raises")
+                    help="use the robust (beta-divergence) emission score")
     sp.add_argument("--robust_beta", type=float, default=0.05)
     sp.add_argument("--marginal", action="store_true",
                     help="adaptive-lag marginal filter: not ported yet, raises")
@@ -165,10 +246,87 @@ def _estimate_parameters_and_regimes(args):
     )
 
 
+def _preprocess(args):
+    if args.format == "gembs":
+        raise NotImplementedError("preprocess --format gembs is not ported yet (ROADMAP.md, item 10: "
+                                  "the single-group half)")
+    from hygeia_tpu_torch.pipeline.preprocess_bed import process_bed
+
+    n = process_bed(
+        args.cpg_file_path, args.output_path, args.chromosome,
+        control_data_paths=args.control_data_path,
+        control_id_names=args.control_id_names or [f"control_{i}" for i in range(len(args.control_data_path))],
+        case_data_paths=args.case_data_path,
+        case_id_names=args.case_id_names or [f"case_{i}" for i in range(len(args.case_data_path))],
+    )
+    print(f"Successfully processed {n} CpG sites for chromosome {args.chromosome}")
+    return n
+
+
+def _run(args):
+    if not args.two_group:
+        raise NotImplementedError("run without --two_group (the single-group pipeline) is not ported yet "
+                                  "(ROADMAP.md, item 10: the single-group half)")
+    from hygeia_tpu_torch.pipeline.orchestrator import run_two_group
+
+    out = run_two_group(
+        output_dir=args.output_dir,
+        chroms=args.chroms,
+        device=None if args.stub_run else resolve_device(args.device),
+        cpg_file_path=args.cpg_file_path,
+        preprocessed_dir=args.preprocessed_dir,
+        control_data_paths=args.control_data_path,
+        control_id_names=args.control_id_names,
+        case_data_paths=args.case_data_path,
+        case_id_names=args.case_id_names,
+        mu=args.mu,
+        sigma=args.sigma,
+        u=args.min_cpg_sites_between_change_points,
+        segment_size=args.batch_size,
+        buffer_size=args.buffer_size,
+        inference_seeds=tuple(range(args.num_of_inference_seeds)),
+        num_resampled_particles=args.num_resampled_particles,
+        num_samples_backward=args.num_samples_backward,
+        n_particles_single_group=args.n_particles,
+        resume=not args.no_resume,
+        stub_run=args.stub_run,
+        max_retries=args.max_retries,
+        mesh_shape=tuple(int(x) for x in args.mesh.lower().split("x")) if args.mesh else None,
+        boundary=args.boundary,
+        streaming_blocks=args.run_streaming_blocks,
+        stream_batched=args.run_stream_batched,
+        bucket_dir=args.bucket_dir,
+    )
+    print(f"pipeline complete: {args.output_dir}")
+    return out
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.verb == "estimate_parameters_and_regimes":
         return _estimate_parameters_and_regimes(args)
+    if args.verb == "preprocess":
+        return _preprocess(args)
+    if args.verb == "get_chrom_segments":
+        from hygeia_tpu_torch.pipeline.segments import write_chrom_segments
+
+        write_chrom_segments(args.input_file, args.chromosome, args.segment_size, args.output_csv)
+        print(f"Segment information saved to {args.output_csv}")
+        return None
+    if args.verb == "aggregate":
+        from hygeia_tpu_torch.pipeline.aggregate import aggregate_chromosome
+
+        return aggregate_chromosome(args.results_dir, args.output_dir, args.chrom, seeds=args.seeds,
+                                    num_particles=args.num_particles, num_batches=args.num_batches,
+                                    compute_freqs=args.compute_freqs)
+    if args.verb == "get_dmps":
+        from hygeia_tpu_torch.pipeline.dmps import call_dmps
+
+        return call_dmps(args.results_dir, args.output_dir, args.chrom, n_regimes=args.n_regimes,
+                         fdr_thresholds=tuple(args.fdr_thresholds or [0.01, 0.05]),
+                         test_regime_combinations=args.test_regime_combinations)
+    if args.verb == "run":
+        return _run(args)
     if args.verb == "infer":
         from hygeia_tpu_torch.two_group.runner import infer_segment
 
@@ -192,6 +350,7 @@ def main(argv=None):
             num_samples_backward=args.num_samples_backward,
             multinomial=args.multinomial,
             robust=args.robust,
+            robust_beta=args.robust_beta,
             trace_dir=args.trace_dir,
             marginal=args.marginal,
             streaming_blocks=args.streaming_blocks,

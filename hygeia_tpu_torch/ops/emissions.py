@@ -34,3 +34,63 @@ def emission_log_prob_table(
     a = torch.as_tensor(alpha, dtype=dtype, device=device)[None, None, :]
     b = torch.as_tensor(beta, dtype=dtype, device=device)[None, None, :]
     return torch.sum(beta_binomial_log_pmf(y, n, a, b), dim=1)
+
+
+def _pairwise_sum0(e):
+    """Sum over axis 0 by halving: each element's additions run in an
+    order fixed by the axis' length alone, on any device and for any shape
+    of the other axes (a library reduction may split a row by the number
+    of outputs). Zero rows pad an odd length; adding 0 is exact."""
+    while e.shape[0] > 1:
+        if e.shape[0] % 2:
+            e = torch.cat([e, e.new_zeros((1, *e.shape[1:]))])
+        h = e.shape[0] // 2
+        e = e[:h] + e[h:]
+    return e[0]
+
+
+def robust_emission_log_prob_table(
+    n_methylated, n_total, alpha, beta, beta_div=0.05, *, dtype=torch.float32, device=None,
+    chunk_elements=1 << 24,
+):
+    """Robust (beta-divergence) emission table, the JAX package's
+    ``robust_emission_log_prob_table``:
+
+        s(y) = (1/b) f(y)^b - 1/(b+1) * sum_x f(x)^(b+1)
+
+    of the BetaBinomial pmf f, summed over samples. The support sum runs
+    over x = 0 .. max(n)-1 with max(n) taken over the whole table (which
+    leaves out x = n at the deepest site, as the reference does).
+
+    The (X, T, S, R) pmf tensor is built in chunks of sites holding at most
+    ``chunk_elements`` values, each with the table's global max(n). The
+    log-sum-exp over x and the sum over samples add in an order that does
+    not depend on the chunking, so the table is the same bit for bit at
+    any chunk size.
+    """
+    if device is None and isinstance(alpha, torch.Tensor):
+        device = alpha.device
+    y = torch.as_tensor(n_methylated, dtype=dtype, device=device)
+    n = torch.as_tensor(n_total, dtype=dtype, device=device)
+    a = torch.as_tensor(alpha, dtype=dtype, device=device)
+    b = torch.as_tensor(beta, dtype=dtype, device=device)
+    bd = torch.as_tensor(beta_div, dtype=dtype, device=device)
+    T, S = n.shape
+    R = a.shape[0]
+    X = max(int(n.max()) if n.numel() else 0, 1)
+    x = torch.arange(X, dtype=dtype, device=device)[:, None, None, None]
+    step = max(1, int(chunk_elements) // (X * S * R))
+    out = torch.empty((T, R), dtype=dtype, device=device)
+    for lo in range(0, T, step):
+        hi = min(T, lo + step)
+        yc, nc = y[lo:hi, :, None], n[lo:hi, :, None]
+        lp_y = beta_binomial_log_pmf(yc, nc, a, b)  # (Tc, S, R)
+        z = (bd + 1.0) * beta_binomial_log_pmf(x, nc[None], a, b)  # (X, Tc, S, R); -inf where x > n
+        m = z.amax(dim=0)
+        lse = torch.log(_pairwise_sum0(torch.exp(z - m))) + m
+        score = torch.exp(bd * lp_y) / bd - torch.exp(lse) / (bd + 1.0)
+        acc = score[:, 0]
+        for s in range(1, S):
+            acc = acc + score[:, s]
+        out[lo:hi] = acc
+    return out

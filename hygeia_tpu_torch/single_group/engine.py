@@ -26,6 +26,13 @@ per-step emitted rows give the same values and ``regime_valid``.
 Every site calls the optimal resampler (ops/cuda_resampling) in float32 on
 the previous weights, M_cap = N - R offspring: the CUDA kernel for CUDA
 tensors, the plain version for CPU tensors.
+
+Per-unit inputs (the blocked theta stage and the multi-chromosome batch):
+an emission table per unit (U, T, R), a warm ADAM state per unit
+(``adam_init``), and an effective length per unit (``t_limit``): at
+t >= t_limit[u] unit u's whole state freezes and adds nothing to logZ, and
+its pending smoothing entries finalise at its own t_limit[u] - 1, so its
+first t_limit[u] rows are those of a run of that length.
 """
 
 from __future__ import annotations
@@ -42,7 +49,10 @@ from hygeia_tpu_torch.single_group.model import SingleGroupModel, build_tables
 
 _NEG_INF = float("-inf")
 _ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
-_CHECKPOINT_VERSION = 1  # of the .npz the chunked engine writes
+_CHECKPOINT_VERSION = 2  # of the .npz the chunked engine writes (2: adam_iter per unit)
+# State that a unit past its t_limit keeps as it was.
+_FROZEN = ("d", "r", "w", "psi", "psi_time", "psi_valid", "spill", "phi", "theta", "grad_prev",
+           "adam_m", "adam_v", "score", "adam_iter")
 
 
 class EngineConfig(NamedTuple):
@@ -67,7 +77,7 @@ class EngineResult(NamedTuple):
     spill_count: torch.Tensor  # (U,) forced finalisations (full buffer or age S_cap)
     final_theta: torch.Tensor  # (U, D)
     final_score: torch.Tensor  # (U, D) filtered mean of phi at the last step
-    final_opt_state: tuple  # (adam_m (U, D), adam_v (U, D), adam_iter int)
+    final_opt_state: tuple  # (adam_m (U, D), adam_v (U, D), adam_iter (U,) int64)
 
 
 def _grad_p_block_columns(R):
@@ -86,7 +96,7 @@ class _Engine:
     and its per-site step."""
 
     def __init__(self, model: SingleGroupModel, theta_init, emissions, config: EngineConfig,
-                 n_units, weight_dtype):
+                 n_units, weight_dtype, adam_init=None, t_limit=None):
         self.model, self.config = model, config
         self.device = dev = emissions.device
         self.dtype = dtype = weight_dtype
@@ -96,11 +106,14 @@ class _Engine:
         self.M = N - R
         self.S = S = config.smoothing_window
         self.D = D = model.dim_theta
-        self.T = T = emissions.shape[0]
+        self.T = T = emissions.shape[-2]
         self.n_haz = 3 if model.kappa_fixed else 4
         if self.M < 1:
             raise ValueError(f"n_particles_max={N} must exceed the {R} regimes")
-        self.emissions = emissions.to(dtype)
+        if emissions.dim() == 3 and emissions.shape[0] != U:
+            raise ValueError(f"per-unit emissions {tuple(emissions.shape)} for {U} units")
+        # (U, T, R); one shared table is a view of it.
+        self.emissions = emissions.to(dtype).expand(U, T, R)
         self.regimes = torch.arange(R, device=dev)
         col = _grad_p_block_columns(R)
         scat = np.zeros((R, R, D))
@@ -116,8 +129,7 @@ class _Engine:
         slot = torch.arange(N, device=dev)
         first = slot < R
         r0 = torch.where(first, slot, 0)
-        w0 = torch.where(first, -math.log(float(R)) + self.emissions[0, r0], _NEG_INF)
-        w0 = w0.expand(U, N)
+        w0 = torch.where(first, -math.log(float(R)) + self.emissions[:, 0, r0], _NEG_INF)
         shift0 = torch.logsumexp(w0, dim=-1)
         w0 = w0 - shift0[:, None]
 
@@ -146,6 +158,25 @@ class _Engine:
         trace = torch.empty((U, T, D), dtype=dtype, device=dev)
         trace[:, 0] = theta
         zeros_ud = torch.zeros((U, D), dtype=dtype, device=dev)
+        adam_m, adam_v = zeros_ud.clone(), zeros_ud.clone()
+        adam_iter = torch.zeros((U,), dtype=torch.int64, device=dev)
+        if adam_init is not None:
+            m0, v0, it0 = adam_init
+            adam_m = torch.as_tensor(m0, dtype=dtype, device=dev).expand(U, D).clone()
+            adam_v = torch.as_tensor(v0, dtype=dtype, device=dev).expand(U, D).clone()
+            adam_iter = torch.as_tensor(it0, dtype=torch.int64, device=dev).expand(U).clone()
+        # Units past their t_limit: the host knows when the first one stops
+        # and which sites finalise a unit; the device reads row t of `live`.
+        self.live = self.final_at = None
+        self.t_freeze = T
+        if t_limit is not None:
+            lim = np.array(np.broadcast_to(np.asarray(t_limit, np.int64), (U,)))
+            if lim.min() < 1 or lim.max() > T:
+                raise ValueError(f"t_limit must lie in [1, {T}], got {lim.tolist()}")
+            self.t_freeze = int(lim.min())
+            lim_t = torch.as_tensor(lim, device=dev)
+            self.live = torch.arange(T, device=dev)[:, None] < lim_t[None, :]  # (T, U)
+            self.final_at = {int(t): lim_t == t + 1 for t in np.unique(lim - 1)}
         self.state = dict(
             d=torch.where(first, 1, 0).expand(U, N).clone(),
             r=r0.expand(U, N).clone(),
@@ -154,9 +185,9 @@ class _Engine:
             out=out, out_valid=out_valid,
             spill=torch.zeros((U,), dtype=torch.int64, device=dev),
             phi=torch.zeros((U, N, D), dtype=dtype, device=dev),
-            theta=theta, grad_prev=zeros_ud, adam_m=zeros_ud.clone(), adam_v=zeros_ud.clone(),
+            theta=theta, grad_prev=zeros_ud, adam_m=adam_m, adam_v=adam_v,
             score=zeros_ud.clone(), shifts=shifts, trace=trace,
-            adam_iter=0, next_t=1,
+            adam_iter=adam_iter, next_t=1,
         )
         self._set_tables(build_tables(model, theta))
 
@@ -182,6 +213,12 @@ class _Engine:
         U, R, N, M, S, D, T = self.U, self.R, self.N, self.M, self.S, self.D, self.T
         dtype, dev, model = self.dtype, self.device, self.model
         d_prev, r_prev, w_prev = st["d"], st["r"], st["w"]
+        live = None
+        if t >= self.t_freeze:  # some unit is past its t_limit: keep its state
+            live = self.live[t]
+            old = {k: st[k] for k in _FROZEN}
+            for k in ("psi_time", "psi_valid", "spill"):  # updated in place below
+                old[k] = st[k].clone()
 
         # Deterministic particle-count schedule.
         n_prev = min(R * t, N)
@@ -214,10 +251,10 @@ class _Engine:
         d_new = torch.cat([d_a + 1, torch.ones_like(fresh_r), zeros_dead], dim=1)
         r_new = torch.cat([r_a, fresh_r, zeros_dead], dim=1)
 
-        obs_t = self.emissions[t]  # (R,)
+        obs_t = self.emissions[:, t]  # (U, R)
         # Guard rho <= 1: near the latch rho can exceed 1 numerically.
         cont_lp = torch.where(exit_a | (rho_a > 1.0), _NEG_INF, torch.log1p(-rho_a))
-        w_cont = anc_w + (cont_lp + obs_t[r_a])
+        w_cont = anc_w + (cont_lp + obs_t.gather(1, r_a))
 
         # Fresh change points marginalise over every previous particle:
         # cp_lp[q, n] = log f((1, q) | prev n), and the backward kernels B.
@@ -239,17 +276,28 @@ class _Engine:
         shift = torch.logsumexp(w_new, dim=-1)
         w_new = w_new - shift[:, None]
         w_self = torch.where(torch.isfinite(w_new), torch.exp(w_new), 0.0)
-        st["shifts"][:, t] = shift
+        st["shifts"][:, t] = shift if live is None else torch.where(live, shift, 0.0)
 
         # ---- adaptive-lag marginal smoothing --------------------------------
         if cfg.estimate_regimes:
-            self._smooth(t, anc, b, r_new, w_self, m_t)
+            if self.final_at is None:
+                final = t == T - 1
+            else:
+                final = self.final_at.get(t, False)
+            self._smooth(t, anc, b, r_new, w_self, m_t, live, final)
 
         # ---- online parameter estimation ------------------------------------
+        updated = False
         if cfg.estimate_parameters:
-            self._estimate(t, trio, trio_a, r_idx, r_a, anc, b, valid, w_self, m_t)
-        st["trace"][:, t] = st["theta"]
+            updated = self._estimate(t, trio, trio_a, r_idx, r_a, anc, b, valid, w_self, m_t)
         st["d"], st["r"], st["w"] = d_new, r_new, w_new
+        if live is not None:
+            for k, v in old.items():
+                keep = live.view(U, *([1] * (v.dim() - 1)))
+                st[k] = torch.where(keep, st[k], v)
+        if updated:
+            self._set_tables(build_tables(model, st["theta"]))
+        st["trace"][:, t] = st["theta"]
         st["next_t"] = t + 1
         if cfg.progress_every and t % cfg.progress_every == 0:
             print(f"single-group engine: step {t}", flush=True)
@@ -269,7 +317,11 @@ class _Engine:
             dead = stat.new_zeros((stat.shape[0], n_dead, stat.shape[2]))
         return torch.cat([cont, fresh, dead], dim=axis)
 
-    def _smooth(self, t, anc, b, r_new, w_self, m_t):
+    def _smooth(self, t, anc, b, r_new, w_self, m_t, live, final):
+        """``live``: None or the (U,) units not yet past their t_limit (the
+        others write only the sentinel row T). ``final``: whether every
+        pending entry finalises at this site, a bool for all units or a
+        (U,) mask."""
         st, U, S, T, R = self.state, self.U, self.S, self.T, self.R
         units = self.units
         psi_valid, psi_time = st["psi_valid"], st["psi_time"]
@@ -286,6 +338,8 @@ class _Engine:
         ins = torch.where(has_free, free_slot, oldest)
         st["spill"] += (~has_free).to(torch.int64)
         spill_time = torch.where(has_free, T, psi_time[units, ins])  # row T: no spill
+        if live is not None:
+            spill_time = torch.where(live, spill_time, T)
         st["out"][units, spill_time] = means_pre[units, ins].float()
         st["out_valid"][units, spill_time] = True
 
@@ -302,13 +356,18 @@ class _Engine:
         diff = psi_new - means[..., None]
         second = ((diff * diff) @ w_col)[..., 0]
         all_below = (second < self.config.epsilon).all(dim=-1)
-        if t == T - 1:
+        if final is True:
             fin = psi_valid
         else:
             aged = psi_time <= t - S
-            st["spill"] += (psi_valid & aged & ~all_below).sum(dim=-1)
+            forced = aged & ~all_below
+            if final is not False:  # the units whose t_limit ends here finalise everything
+                forced = forced & ~final[:, None]
+                all_below = all_below | final[:, None]
+            st["spill"] += (psi_valid & forced).sum(dim=-1)
             fin = psi_valid & (all_below | aged)
-        times = torch.where(fin, psi_time, T)  # entries that stay pending write row T
+        written = fin if live is None else fin & live[:, None]
+        times = torch.where(written, psi_time, T)  # entries that stay pending write row T
         st["out"][units[:, None], times] = means.float()
         st["out_valid"][units[:, None], times] = True
         st["psi"], st["psi_valid"] = psi_new, psi_valid & ~fin
@@ -349,14 +408,14 @@ class _Engine:
         st["phi"], st["score"] = phi, score
 
         if t % cfg.steps_per_update != 0:
-            return
+            return False
         gradient = score - st["grad_prev"]
         it = st["adam_iter"]
-        lr = cfg.learning_rate_factor / (it + 1.0) ** cfg.learning_rate_exponent
+        it1 = (it.to(self.dtype) + 1.0)[:, None]  # (U, 1): each unit's own count
+        lr = cfg.learning_rate_factor / it1**cfg.learning_rate_exponent
         if cfg.use_adam:
             m2 = _ADAM_B1 * st["adam_m"] + (1 - _ADAM_B1) * gradient
             v2 = _ADAM_B2 * st["adam_v"] + (1 - _ADAM_B2) * gradient * gradient
-            it1 = it + 1.0
             delta = (lr * m2 / (torch.sqrt(v2 / (1.0 - _ADAM_B2**it1)) + _ADAM_EPS)
                      / (1.0 - _ADAM_B1**it1))
             st["adam_m"], st["adam_v"] = m2, v2
@@ -368,7 +427,7 @@ class _Engine:
         st["theta"] = st["theta"] + delta
         st["adam_iter"] = it + 1
         st["grad_prev"] = score
-        self._set_tables(build_tables(model, st["theta"]))
+        return True
 
     def result(self) -> EngineResult:
         st, T = self.state, self.T
@@ -406,11 +465,17 @@ class _Engine:
         self._set_tables(build_tables(self.model, self.state["theta"]))
 
 
-def _site_uniforms(t, n_units, n_offspring, u_sys, u_mult, generator, device):
+def _site_uniforms(t, n_units, n_offspring, u_sys, u_mult, generator, device, shared=False):
     """(u_sys (U,), u_mult (U, M)) of site t: the injected draws when given
-    (row t - 1), else fresh ones from ``generator``."""
+    (row t - 1), else fresh ones from ``generator``; with ``shared`` one
+    unit's draws for every unit (those of a one-unit run on the same
+    generator)."""
     if u_sys is not None:
         return u_sys[t - 1], u_mult[t - 1]
+    if shared:
+        us = torch.rand((1,), generator=generator, device=device)
+        um = torch.rand((1, n_offspring), generator=generator, device=device)
+        return us.expand(n_units).contiguous(), um.expand(n_units, n_offspring).contiguous()
     return (torch.rand((n_units,), generator=generator, device=device),
             torch.rand((n_units, n_offspring), generator=generator, device=device))
 
@@ -433,29 +498,43 @@ def _check_uniforms(T, U, M, u_sys, u_mult, generator, device):
 def run_online_combined_inference(
     model: SingleGroupModel,
     theta_init,
-    emissions,  # (T, R) emission log-lik table on the engine's device
+    emissions,  # (T, R) or per unit (U, T, R) emission log-lik table on the engine's device
     config: EngineConfig,
     *,
     n_units=1,
     generator=None,
     u_sys=None,
     u_mult=None,
+    shared_draws=False,
     weight_dtype=torch.float32,
+    adam_init=None,
+    t_limit=None,
 ) -> EngineResult:
     """Run the combined algorithm over the T sites for ``n_units`` units.
 
     theta_init: (D,) for every unit or (U, D). Randomness: the resampler's
     uniforms of site t are row t - 1 of ``u_sys`` (T-1, U) and ``u_mult``
     (T-1, U, M_cap) when given (a test passes the draws JAX derives from
-    ``fold_in(key, t)``), else drawn from ``generator``.
+    ``fold_in(key, t)``), else drawn from ``generator``: fresh ones for each
+    unit, or with ``shared_draws`` the same for every unit, those a one-unit
+    run on the same generator takes (JAX's batched theta stage gives every
+    chromosome the same key).
+
+    adam_init: (adam_m (U, D) or (D,), adam_v likewise, adam_iter (U,) or a
+    count): the ADAM state to start from (the blocked theta stage continues
+    a warmup chain's); grad_prev starts at 0 all the same. t_limit: (U,)
+    effective lengths; unit u stops at t_limit[u] (its state freezes and
+    adds 0 to logZ; its smoothing buffer is flushed at t_limit[u] - 1), so
+    with the same draws its first t_limit[u] rows are a run of that length.
 
     Per site, as the reference's OnlineCombinedInference::run: SMC step,
     backward kernels, smoothing update, parameter-estimation update.
     """
-    eng = _Engine(model, theta_init, emissions, config, n_units, weight_dtype)
+    eng = _Engine(model, theta_init, emissions, config, n_units, weight_dtype, adam_init, t_limit)
     u_sys, u_mult = _check_uniforms(eng.T, eng.U, eng.M, u_sys, u_mult, generator, eng.device)
     for t in range(1, eng.T):
-        eng.step(t, *_site_uniforms(t, eng.U, eng.M, u_sys, u_mult, generator, eng.device))
+        eng.step(t, *_site_uniforms(t, eng.U, eng.M, u_sys, u_mult, generator, eng.device,
+                                    shared_draws))
     return eng.result()
 
 

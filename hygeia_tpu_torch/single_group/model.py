@@ -64,8 +64,8 @@ class ThetaTables(NamedTuple):
     grad_kappa_log_rho: torch.Tensor  # (..., R, d_max) (zeros when kappa fixed)
 
 
-def make_model(mu, sigma, u, kappa, *, kappa_fixed=True, d_max=4096,
-               dtype=torch.float32, device="cpu"):
+def make_model(mu, sigma, u, kappa, *, device, kappa_fixed=True, d_max=4096,
+               dtype=torch.float32):
     """The static model config from the CLI-level parameters."""
     mu = torch.as_tensor(np.asarray(mu, np.float64), dtype=dtype, device=device)
     sigma = torch.as_tensor(np.asarray(sigma, np.float64), dtype=dtype, device=device)
@@ -81,7 +81,7 @@ def make_model(mu, sigma, u, kappa, *, kappa_fixed=True, d_max=4096,
     )
 
 
-def model_from_numpy(d, theta, *, dtype=torch.float64, device="cpu"):
+def model_from_numpy(d, theta, *, device, dtype=torch.float64):
     """(SingleGroupModel, theta tensor) from the JAX package's
     ``SingleGroupModel._asdict()`` with its arrays as numpy, and a theta
     vector: the tests hand both packages the same model and theta."""

@@ -136,8 +136,8 @@ def make_params(
     split_prob,
     minimum_duration,
     d_max,
+    device,
     dtype=torch.float32,
-    device="cpu",
 ):
     """Build TwoGroupParams the way hygeia_tpu.two_group.model.make_params
     does (run_inference_two_groups.py's construction): rows of the control
@@ -178,7 +178,7 @@ def make_params(
     )
 
 
-def params_from_numpy(d, *, dtype=None, device="cpu"):
+def params_from_numpy(d, *, device, dtype=None):
     """TwoGroupParams from the JAX package's parameters as a dict of numpy
     arrays (``TwoGroupParams._asdict()`` with arrays converted), so a test
     can hand both packages identical tables."""

@@ -19,7 +19,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from hygeia_tpu_torch.ops.emissions import emission_log_prob_table
+from hygeia_tpu_torch.ops.emissions import emission_log_prob_table, robust_emission_log_prob_table
 from hygeia_tpu_torch.two_group.backward import backward_simulation, smoothing_functionals
 from hygeia_tpu_torch.two_group.filter import HISTORY_BYTES_PER_PARTICLE_SITE, run_filter
 from hygeia_tpu_torch.two_group.model import make_params
@@ -118,6 +118,20 @@ def _make_params(mu, sigma, p_softmax, omega_logit_control, omega_case, merge_lo
     )
 
 
+def _emission_tables(n_meth_control, n_total_control, n_meth_case, n_total_case, params, robust,
+                     robust_beta):
+    """The (T, R) control and case emission tables on the parameters'
+    device: BetaBinomial log-likelihoods, or with ``robust`` the
+    beta-divergence score of exponent ``robust_beta``."""
+    if robust:
+        def table(y, n):
+            return robust_emission_log_prob_table(y, n, params.alpha, params.beta, robust_beta)
+    else:
+        def table(y, n):
+            return emission_log_prob_table(y, n, params.alpha, params.beta)
+    return table(n_meth_control, n_total_control), table(n_meth_case, n_total_case)
+
+
 def _write_unit_outputs(path, N, s, traj, split, regime, ret):
     """One unit's trajectory, split and regime archives, the JAX runner's
     names and dtypes; traj (T, B, 5) int32, cut to the return range."""
@@ -196,8 +210,10 @@ def infer_segment(
     num_samples_backward=25,
     multinomial=False,
     robust=False,
+    robust_beta=0.05,
     trace_dir=None,
     marginal=False,
+    max_seeds_per_call=None,
     streaming_blocks=None,
     timings=None,
 ):
@@ -213,11 +229,14 @@ def infer_segment(
     ``timings``, a dict, then collects streamed_inference's per-block walls
     (one list entry per chunk).
 
+    robust=True swaps the BetaBinomial emissions for the beta-divergence
+    score of exponent ``robust_beta``. max_seeds_per_call caps the seeds of
+    a chunk on top of the memory budget's cap: the pipeline lowers it on
+    each retry of a failed unit.
+
     multinomial is recorded in the flags files only: as in hygeia_tpu, the
     INFER filter always takes the optimal resampler (whose fallback is
     multinomial)."""
-    if robust:
-        _not_ported("--robust", "12 (robust mode)")
     if marginal:
         _not_ported("--marginal", "11 (marginal path)")
     if trace_dir:
@@ -263,8 +282,8 @@ def infer_segment(
 
     params = _make_params(mu, sigma, p_softmax, omega_logit_control, omega_case, merge_log_prob,
                           split_prob, minimum_duration, max(64, T + 1), device)
-    E_c = emission_log_prob_table(n_meth_control, n_total_control, params.alpha, params.beta)
-    E_k = emission_log_prob_table(n_meth_case, n_total_case, params.alpha, params.beta)
+    E_c, E_k = _emission_tables(n_meth_control, n_total_control, n_meth_case, n_total_case, params,
+                                robust, robust_beta)
 
     seeds = [seed] if np.isscalar(seed) else list(seed)
     all_log_norm = {s: {} for s in seeds}
@@ -280,6 +299,8 @@ def infer_segment(
         else:
             per_seed = bytes_per_seed(T, N, B)
         seeds_per_call = max(1, int(budget // per_seed))
+        if max_seeds_per_call is not None:
+            seeds_per_call = min(seeds_per_call, max(1, int(max_seeds_per_call)))
 
         outs = {}
         for c0 in range(0, len(seeds), seeds_per_call):
@@ -358,6 +379,7 @@ def infer_chromosome_streamed(
     num_samples_backward=25,
     multinomial=False,
     robust=False,
+    robust_beta=0.05,
     streaming_blocks=16384,
     max_units_per_call=None,
     timings=None,
@@ -377,9 +399,8 @@ def infer_chromosome_streamed(
     The per-unit file writes run on a two-thread pool, overlapping the next
     chunk's device work. ``timings``, a dict, gets "chunks": one entry per
     chunk, (window length, units, seconds, streamed_inference's per-block
-    walls). Returns {batch: {seed: {N: logZ}}}."""
-    if robust:
-        _not_ported("--robust", "12 (robust mode)")
+    walls). robust=True builds each unit's rows from the beta-divergence
+    score, as ``infer_segment`` does. Returns {batch: {seed: {N: logZ}}}."""
     device = torch.device(device)
     mu = np.asarray(mu, np.float64)
     R = len(mu)
@@ -451,12 +472,9 @@ def infer_chromosome_streamed(
                 emis = {}
                 for b in group_batches:
                     c = wins[b][2]
-                    emis[b] = (
-                        emission_log_prob_table(c["n_meth_control"], c["n_total_control"],
-                                                params.alpha, params.beta),
-                        emission_log_prob_table(c["n_meth_case"], c["n_total_case"],
-                                                params.alpha, params.beta),
-                    )
+                    emis[b] = _emission_tables(c["n_meth_control"], c["n_total_control"],
+                                               c["n_meth_case"], c["n_total_case"], params, robust,
+                                               robust_beta)
                 cap = max(1, int(budget // bytes_per_streamed_unit(t_w, W, N, B)))
                 if max_units_per_call is not None:
                     cap = min(cap, int(max_units_per_call))

@@ -72,6 +72,67 @@ def read_positions(path):
     return read_count_matrix(path, np.int64).ravel()
 
 
+def _write_bytes(path, data, level=1):
+    _ensure_dir(path)
+    if str(path).endswith(".gz"):
+        with gzip.open(path, "wb", compresslevel=level) as f:
+            f.write(data)
+    else:
+        with open(path, "wb") as f:
+            f.write(data)
+
+
+_ROWS_PER_PIECE = 1 << 16
+
+
+def format_int_rows(values, sep=",", index=None, suffix=""):
+    """Bytes of an integer table, one row a line: each value in decimal
+    followed by ``suffix`` (``"%d" + suffix`` of it), joined by ``sep``,
+    after an optional integer index column; "\n" line ends. The same bytes
+    as np.savetxt(fmt="%d" + suffix) or pandas' to_csv of an int frame,
+    built from digit arrays instead of one format call a value (a few
+    seconds less a table at chromosome scale)."""
+    a = np.asarray(values)
+    if a.ndim == 1:
+        a = a[:, None]
+    if not (np.issubdtype(a.dtype, np.integer) or a.dtype == bool):
+        raise TypeError(f"format_int_rows formats integer tables, got {a.dtype}")
+    a = a.astype(np.int64)
+    if index is not None:
+        a = np.concatenate([np.asarray(index, np.int64)[:, None], a], axis=1)
+    n, k = a.shape
+    if n == 0 or k == 0:
+        return b"\n" * n
+    sfx = np.frombuffer(suffix.encode(), np.uint8)
+    sep_b, nl = ord(sep), ord("\n")
+    pieces = []
+    for lo in range(0, n, _ROWS_PER_PIECE):
+        v = a[lo : lo + _ROWS_PER_PIECE]
+        neg = v < 0
+        mag = np.abs(v).astype(np.uint64)
+        n_dig = np.ones(v.shape, np.int64)
+        for e in range(1, 19):  # |int64| has at most 19 digits
+            more = mag >= np.uint64(10**e)
+            if not more.any():
+                break
+            n_dig += more
+        width = int(n_dig.max()) + 1  # sign, digits
+        W = width + sfx.size + 1  # then the suffix and the separator
+        cell = np.zeros((*v.shape, W), np.uint8)
+        m = mag.copy()
+        for d in range(width - 1):  # right-aligned digits, last first
+            cell[..., width - 1 - d] = (m % np.uint64(10)).astype(np.uint8) + ord("0")
+            m //= np.uint64(10)
+        cell[(*np.nonzero(neg), (width - 1 - n_dig)[neg])] = ord("-")
+        cell[..., width : width + sfx.size] = sfx
+        cell[..., -1] = sep_b
+        cell[:, -1, -1] = nl
+        pos = np.arange(W)
+        keep = pos >= (width - n_dig - neg)[..., None]
+        pieces.append(cell[keep].tobytes())
+    return b"".join(pieces)
+
+
 def write_count_matrix(path, arr, level=1):
     """Header-less comma-separated integer table, gzip level 1 when the path
     ends in .gz. Only integer arrays: the port writes the trimmed counts and
@@ -81,9 +142,60 @@ def write_count_matrix(path, arr, level=1):
         a = a[:, None]
     if not np.issubdtype(a.dtype, np.integer):
         raise TypeError(f"write_count_matrix writes integer tables, got {a.dtype}")
-    buf = _io.StringIO()
-    np.savetxt(buf, a, fmt="%d", delimiter=",", newline="\n")
-    _write_text(path, buf.getvalue(), level)
+    _write_bytes(path, format_int_rows(a, ","), level)
+
+
+def write_int_table(path, values, *, index=None, header=None, sep="\t", level=1):
+    """An integer table with an optional header line and index column, as
+    pandas' to_csv of an int frame writes it (the aggregate stage's
+    tables: header ``pos\t0\t1...``, the positions as the index)."""
+    head = b"" if header is None else header.encode() + b"\n"
+    _write_bytes(path, head + format_int_rows(values, sep, index=index), level)
+
+
+def read_int_table(path, sep="\t"):
+    """(header names, index (n,) int64, values (n, k) int64) of a table
+    write_int_table wrote."""
+    lines = _read_text(path).split(b"\n")
+    header = lines[0].decode().split(sep)
+    rows = [ln for ln in lines[1:] if ln.strip()]
+    vals = np.array(b" ".join(rows).replace(sep.encode(), b" ").split(), dtype=np.int64)
+    vals = vals.reshape(len(rows), len(header))
+    return header, vals[:, 0], vals[:, 1:]
+
+
+def _float_cells(a, sig_digits=9):
+    """The cells of a float table as the JAX package's native float writer
+    formats them: integral values below 1e15 in magnitude as "%d.0",
+    others "%.{sig_digits}g"."""
+    a = np.asarray(a, np.float64)
+    out = np.char.mod(f"%.{sig_digits}g", a).astype(object)
+    integral = np.isfinite(a) & (np.abs(a) < 1e15) & (a == np.trunc(np.where(np.isfinite(a), a, 0)))
+    out[integral] = [f"{int(v)}.0" for v in a[integral]]
+    return out
+
+
+def write_float_table(path, values, *, index=None, header=None, sep=",", level=1):
+    """A float table (regime probabilities, theta traces) with an optional
+    header line and integer index column, in the JAX package's native
+    writer's format (%.9g, integral values as "x.0"; %.9g restores a float32
+    exactly). Runs of equal rows (a theta trace between updates) are
+    formatted once."""
+    a = np.asarray(values, np.float64)
+    if a.ndim == 1:
+        a = a[:, None]
+    n = a.shape[0]
+    if n:
+        starts = np.flatnonzero(np.concatenate([[True], np.any(a[1:] != a[:-1], axis=1)]))
+        cells = _float_cells(a[starts])
+        rows = np.array([sep.join(r) for r in cells.tolist()], dtype=object)
+        rows = rows[np.searchsorted(starts, np.arange(n), side="right") - 1]
+        if index is not None:
+            rows = np.asarray(index, np.int64).astype(str).astype(object) + sep + rows
+        body = "\n".join(rows.tolist()) + "\n"
+    else:
+        body = ""
+    _write_text(path, ("" if header is None else header + "\n") + body, level)
 
 
 # ---------- headed CSVs (the single-group engine's files) ----------

@@ -295,3 +295,44 @@ def test_streamed_equals_monolithic_on_the_card(device):
     assert torch.equal(log_z, res.log_normalizing_constant)
     assert torch.equal(degen, res.degenerate_steps)
     assert timings["rerun_equals_checkpoint"] == [True] * 4
+
+
+def test_robust_table_on_the_card_matches_the_cpu(device):
+    """The f32 robust table built on the card (lgamma and exp of the card)
+    against the f64 table on the CPU: rtol 1e-5."""
+    from hygeia_tpu_torch.ops.distributions import mu_sigma_to_alpha_beta
+    from hygeia_tpu_torch.ops.emissions import robust_emission_log_prob_table
+
+    rng = np.random.default_rng(5)
+    n = rng.poisson(20, size=(2000, 2)).astype(np.float64)
+    y = rng.binomial(n.astype(int), 0.4).astype(np.float64)
+    tables = []
+    for dev, dtype in ((torch.device("cpu"), torch.float64), (device, torch.float32)):
+        a, b = mu_sigma_to_alpha_beta(torch.tensor([0.95, 0.05, 0.8, 0.2, 0.5, 0.5], dtype=dtype, device=dev),
+                                      torch.tensor([0.05, 0.05, 0.1, 0.1, 0.1, 0.2886751], dtype=dtype, device=dev))
+        tables.append(robust_emission_log_prob_table(y, n, a, b, dtype=dtype).cpu().double())
+    torch.testing.assert_close(tables[1], tables[0], rtol=1e-5, atol=0)
+
+
+def test_blocked_theta_on_the_card_launches_once_a_site_for_all_blocks(device):
+    """The warmup chain, then every block as a unit of one engine call: the
+    kernel launched (Tw - 1) + (win - 1) times."""
+    from hygeia_tpu_torch.ops.emissions import emission_log_prob_table
+    from hygeia_tpu_torch.single_group.blocked import run_online_combined_inference_blocked
+    from hygeia_tpu_torch.single_group.engine import EngineConfig
+    from hygeia_tpu_torch.single_group.model import make_model
+
+    R, T = 6, 1000
+    rng = np.random.default_rng(6)
+    model = make_model([0.99, 0.01, 0.8, 0.2, 0.5, 0.5], [0.05, 0.05, 0.2, 0.2, 0.2, 0.2886751],
+                       2, np.full(R, 2.0), device=device)
+    n = rng.poisson(20, size=(T, 2))
+    y = rng.binomial(n, np.repeat(rng.uniform(0, 1, T // 50), 50)[:, None])
+    E = emission_log_prob_table(y, n, model.alpha, model.beta)
+    cfg = EngineConfig(estimate_parameters=True, steps_per_update=50)
+    before = cr.KERNEL.launches
+    res = run_online_combined_inference_blocked(model, np.zeros(R * R), E, cfg, block_size=256, halo=64,
+                                                warmup_sites=200,
+                                                generator=torch.Generator(device=device).manual_seed(0))
+    assert cr.KERNEL.launches - before == (200 - 1) + (256 + 64 - 1)
+    assert np.isfinite(res.theta_trace).all() and res.regime_valid.all()

@@ -210,8 +210,10 @@ def test_cli_device_cuda_raises_without_cuda(runs, tmp_path):
     assert not any(tmp_path.iterdir())  # raised before writing anything
 
 
-# --streaming_blocks is ported; with --robust it still raises.
-@pytest.mark.parametrize("flag", [["--robust"], ["--marginal"], ["--streaming_blocks", "64", "--robust"],
+# --streaming_blocks and --robust are ported; --marginal and --trace_dir,
+# with them or alone, still raise.
+@pytest.mark.parametrize("flag", [["--robust", "--marginal"], ["--marginal"],
+                                  ["--streaming_blocks", "64", "--robust", "--trace_dir", "x"],
                                   ["--trace_dir", "x"]])
 def test_unported_options_raise(runs, tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -107,7 +107,7 @@ def _param_kwargs(R, seed):
 def test_make_params_matches_jax_f64():
     kw = _param_kwargs(6, 5)
     want = j_make_params(**kw, dtype=jnp.float64)
-    got = t_make_params(**kw, dtype=F64)
+    got = t_make_params(**kw, dtype=F64, device="cpu")
     assert got.n_regimes == want.n_regimes and got.min_duration == want.min_duration
     for name in ("mu", "sigma", "alpha", "beta", "log_p_control", "log_p_merged", "rho_control", "rho_case"):
         g, w = getattr(got, name).numpy(), np.asarray(getattr(want, name))

@@ -56,7 +56,8 @@ F64 = torch.float64
 
 
 def _port_model(model, theta, dtype=F64):
-    return tm.model_from_numpy({k: np.asarray(v) for k, v in model._asdict().items()}, theta, dtype=dtype)
+    return tm.model_from_numpy({k: np.asarray(v) for k, v in model._asdict().items()}, theta, dtype=dtype,
+                               device="cpu")
 
 
 def _random_theta(R, rng, kappa_fixed=True):
@@ -197,7 +198,8 @@ def test_chip_smoke_pins_the_jax_onsets(kappa_fixed):
     jmodel = jm.make_model(np.asarray(chip_smoke.SG_MU), np.asarray(sigma), 2, kappa,
                            kappa_fixed=kappa_fixed, d_max=4096)
     want = jm.build_tables(jmodel, jnp.asarray(theta, jnp.float32))
-    tmodel = tm.make_model(chip_smoke.SG_MU, sigma, 2, kappa, kappa_fixed=kappa_fixed, d_max=4096)
+    tmodel = tm.make_model(chip_smoke.SG_MU, sigma, 2, kappa, kappa_fixed=kappa_fixed, d_max=4096,
+                           device="cpu")
     got = tm.build_tables(tmodel, torch.as_tensor(theta, dtype=torch.float32))
     pin = [-1 if o is None else o for o in chip_smoke.JAX_ONSETS["kappa fixed" if kappa_fixed else "kappa free"]]
     assert _onsets(want.exit_status) == _onsets(got.exit_status) == pin
@@ -350,7 +352,7 @@ def test_chunked_engine_matches_and_resumes(tmp_path, monkeypatch):
     for a, b in zip(full, resumed):
         if torch.is_tensor(a):
             assert torch.equal(a, b)
-    assert resumed.final_opt_state[2] == full.final_opt_state[2]
+    assert torch.equal(resumed.final_opt_state[2], full.final_opt_state[2])
 
 
 # ------------------------------------------------------------------- CLI ----

@@ -252,7 +252,8 @@ def test_streamed_equals_monolithic_bit_for_bit(W, per_unit, dtype, monkeypatch)
     params = default_params(R=R, min_duration=2, d_max=64)
     tp = _port_params(params)
     if dtype == torch.float32:
-        tp = tm.params_from_numpy({k: np.array(v) for k, v in params._asdict().items()}, dtype=dtype)
+        tp = tm.params_from_numpy({k: np.array(v) for k, v in params._asdict().items()}, dtype=dtype,
+                                  device="cpu")
     E_c, E_k = (torch.from_numpy(e).to(dtype) for e in _emissions(params, T, 5, per_unit=U if per_unit else 0))
     res, traj = _monolithic(tp, E_c, E_k, M, B, U, dtype)
 
@@ -457,6 +458,16 @@ def test_infer_chromosome_streamed_matches_per_batch(tmp_path):
 
 
 def test_infer_chromosome_streamed_robust_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        infer_chromosome_streamed(data_dir=str(tmp_path), single_group_dir=str(tmp_path),
-                                  results_dir=str(tmp_path), chrom="c", device="cpu", robust=True)
+    """Robust mode is ported (it raised until then): robust=True runs, on
+    the beta-divergence rows (another logZ than the BetaBinomial run's with
+    the same draws), and the flags record it. tests/test_torch_robust.py
+    holds it against per-segment runs."""
+    data, sg = _write_chromosome(tmp_path, "c", 120, 6)
+    common = dict(data_dir=str(data), single_group_dir=str(sg), chrom="c", segment_size=70,
+                  buffer_size=10, mu=MU, sigma=SIGMA, num_resampled_particles=(MM,),
+                  num_samples_backward=BB, streaming_blocks=W, device="cpu", seed=[0])
+    robust = infer_chromosome_streamed(results_dir=str(tmp_path / "r"), robust=True, **common)
+    plain = infer_chromosome_streamed(results_dir=str(tmp_path / "p"), **common)
+    for b in (0, 1):
+        assert np.isfinite(robust[b][0][NN]) and robust[b][0][NN] != plain[b][0][NN]
+        assert "--robust=True" in (tmp_path / "r" / f"chrom_c_{b}" / "flags0.txt").read_text()

@@ -44,7 +44,7 @@ RTOL = 1e-13
 
 
 def _port_params(params):
-    return tm.params_from_numpy({k: np.array(v) for k, v in params._asdict().items()})
+    return tm.params_from_numpy({k: np.array(v) for k, v in params._asdict().items()}, device="cpu")
 
 
 def _assert_close_masked(got, want, err_msg=""):
