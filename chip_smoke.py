@@ -5,7 +5,8 @@
     python3 chip_smoke.py --chrom_sites 105000                  # phase 5's chromosome as long as it was
     python3 chip_smoke.py --chrom_sites 3300 --sites 3000 --buffer 300 --stream_block 512 \
         --chrom2_sites 3000 --robust_sites 600 --robust_buffer 60 --theta_block 1024 \
-        --theta_halo 128 --theta_warmup 1024 --pipeline_sites 2600   # a quick look
+        --theta_halo 128 --theta_warmup 1024 --pipeline_sites 2600 --sg_pipeline_sites 1500 \
+        --marginal_sites 1500 --marginal_buffer 150   # a quick look
 
 Phases, each of which raises (exit code non-zero) when it fails:
 
@@ -35,6 +36,10 @@ Phases, each of which raises (exit code non-zero) when it fails:
    rho, exit latch and gradient tables, and latch onsets equal to the JAX
    package's f32 tables' on the CPU (pinned here, JAX_ONSETS; the card's
    machine has no JAX, tests/test_torch_single_group.py holds the pin);
+   then the f32 BetaBinomial emission table (infer and single-group
+   defaults, 2 and 8 samples) and the two-group hazard table rho (six
+   omega, kappa 2, u 3, d_max 4096), bit-identical on the card and the CPU
+   (tests/test_torch_ops.py holds the CPU tables to JAX's bit for bit);
 5. a seeded reference-format chromosome of 40,000 CpGs is written to a
    temporary directory: 2 control + 2 case samples for ``infer`` and the
    two control samples as headed CSVs for the single-group engine, which
@@ -66,9 +71,9 @@ Phases, each of which raises (exit code non-zero) when it fails:
    higher inside the DMRs than outside, and launches equal to the sum of
    the per-chunk formula; sites x units per second is printed;
 10. ``infer --robust`` through the CLI on batch 0 of phase 5's chromosome
-   (segment 3,000 + halo 300, one seed, phase 6's theta): the robust
-   emission table built on the card against the float64 table on the CPU
-   (rtol 1e-5, float32), logZ finite and not that of a BetaBinomial run of
+   (segment 3,000 + halo 300, one seed, phase 6's theta): the f32 robust
+   emission table built on the card equal to the CPU's bit for bit, and
+   within rtol 1e-5 of the float64 table, logZ finite and not that of a BetaBinomial run of
    the same window, no degenerate step, T - 1 launches, the split
    probability higher inside the DMRs than outside;
 11. ``single_group.blocked.run_online_combined_inference_blocked`` on phase
@@ -85,14 +90,39 @@ Phases, each of which raises (exit code non-zero) when it fails:
    the engine's ms per site over 300 sites at U = 1, 8 and 48;
 12. ``hygeia_tpu_torch.cli run --two_group`` from BED files written here (a
    CpG list and 2 control + 2 case samples of a third chromosome "3" of
-   13,000 CpGs with 10 case-only DMR windows of 300 sites), batches of
+   13,000 CpGs, with 10 case-only DMR windows of 300 sites), batches of
    6,000 + halo 600 (3 batches), 2 seeds, the default FDR thresholds,
    sequential theta: the stage tree 1_PREPROCESS/ .. 6_GET_DMPS/ with the
    JAX orchestrator's file names, aggregate tables of 13,000 rows x 50
    trajectories, (T - 1) + sum over batches of (window - 1) launches (one
    launch a site serves both seeds), weighted_dmp_0.05.csv non-empty with
    at least half its positions in planted windows (recall printed); a
-   second invocation runs no stage again.
+   second invocation runs no stage again;
+13. ``hygeia_tpu_torch.cli run`` (the single-group pipeline) from a sample
+   sheet of 2 BED samples of a fourth chromosome "4" of 5,000 CpGs with
+   planted high and low stretches, at the run verb's defaults (R=6,
+   N=250 so M=244, u=3, d_max 4096, f32): both batched passes with U=2,
+   2 (T - 1) launches, a tabix query over each .bed.gz equal to a plain
+   scan, make_bed_file on the stage's regime file equal to the stage's
+   bytes, a re-run that runs no stage; then ``preprocess --format gembs``
+   on the same samples' counts written as gemBS tab files, the counts read
+   back equal; then ``run_single_group(samples=...)`` on the preprocessed
+   directories with tests/test_orchestrator.py's learning settings (an
+   update every 50 sites at rate 0.2): 2 (T - 1) launches and the regime
+   modes on more than 0.6 of the planted high and low stretches (that
+   test's bound). At the CLI defaults the recovery is printed, not held:
+   from the port's start draw both packages settle in regime 0, whose
+   float32 hazard is exactly 0 past a sojourn of 59 with no exit latch,
+   and stay there (tests/test_torch_single_group_pipeline.py::
+   test_both_passes_from_the_ports_start_agree_with_jax);
+14. ``infer --marginal`` (runner.infer_segment) on batch 0 of phase 5's
+   chromosome, segment 2,000 + halo 200 (cut for time), phase 6's theta,
+   M=50 (N=2400), window 64, seeds 0 and 1 in one call: T - 1 launches,
+   logZ finite, the spill counts printed, the split probability higher
+   inside the planted DMRs than outside, the split and the regime
+   probabilities within 0.1 and 0.07 (mean absolute) of phase 7's
+   backward-simulation ones on the same sites, peak memory beside phase
+   7's.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc;
@@ -391,7 +421,50 @@ def hazard_phase(device):
               f"hazard {label}: latch onsets {onsets[label]}, the JAX package's {JAX_ONSETS[label]}")
         print(f"hazard tables ({label}, f32, d_max 4096): CPU and card bit-identical "
               f"({', '.join(names)}); exit-latch onsets per regime {onsets[label]}, the JAX package's")
+    two_group_tables_phase(device)
     return onsets
+
+
+# The six omega of the two-group rho check: the case default, sigmoid(+-2),
+# and the single-group CLI's control defaults.
+RHO_OMEGA = (0.8, 1 / (1 + math.exp(-2.0)), 1 / (1 + math.exp(2.0)), 0.995, 0.975, 0.9)
+
+
+def two_group_tables_phase(device):
+    """The float32 BetaBinomial emission table (infer and single-group
+    defaults, 2 and 8 samples) and the two-group hazard table rho (the six
+    RHO_OMEGA, kappa 2, u 3, d_max 4096) built on the card and on the CPU:
+    bit-identical (both are the JAX package's eager f32 tables on the CPU,
+    tests/test_torch_ops.py)."""
+    import numpy as np
+    import torch
+    from hygeia_tpu_torch.ops.distributions import mu_sigma_to_alpha_beta
+    from hygeia_tpu_torch.ops.emissions import emission_log_prob_table
+    from hygeia_tpu_torch.ops.hazard import rho_two_group
+
+    rng = np.random.default_rng(4)
+    for S in (2, 8):
+        n = rng.poisson(20, size=(5000, S)).astype(np.float32)
+        n[::13] = 0
+        y = np.minimum(rng.poisson(10, size=n.shape), n).astype(np.float32)
+        for label, (mu, sigma) in (("infer", (MU, SIGMA)), ("single-group", (SG_MU, SG_SIGMA))):
+            tabs = []
+            for dev in (torch.device("cpu"), device):
+                a, b = mu_sigma_to_alpha_beta(torch.tensor(mu, dtype=torch.float32, device=dev),
+                                              torch.tensor(sigma, dtype=torch.float32, device=dev))
+                tabs.append(emission_log_prob_table(y, n, a, b).cpu())
+            check(torch.equal(tabs[0], tabs[1]),
+                  f"emission table ({label} defaults, S={S}): {int((tabs[0] != tabs[1]).sum())} entries differ "
+                  f"between the CPU and the card")
+    omega = torch.tensor(RHO_OMEGA, dtype=torch.float32)
+    kappa = torch.full((len(RHO_OMEGA),), 2.0)
+    rho = [rho_two_group(kappa.to(dev), omega.to(dev), 3, 4096).cpu() for dev in (torch.device("cpu"), device)]
+    check(torch.equal(rho[0], rho[1]), f"rho: {int((rho[0] != rho[1]).sum())} entries differ between the CPU "
+                                       "and the card")
+    onset = [int(r.int().argmax()) if r.any() else None for r in (rho[1] == np.float32(0.1))]
+    print(f"two-group tables (f32): the BetaBinomial emission table (infer and single-group defaults, S = 2 "
+          f"and 8, 5,000 sites) and rho (omega {[round(o, 4) for o in RHO_OMEGA]}, kappa 2, u 3, d_max 4096) "
+          f"bit-identical on the CPU and the card; rho's 0.1-guard onsets {onset}")
 
 
 # ----------------------------------------------------------------- slice ----
@@ -446,14 +519,15 @@ def make_dataset(root, n_sites, seed=0, n_dmr=20, dmr_len=300, chrom="1"):
     return data_dir, sg_dir, dmr, regime
 
 
-def make_bed_dataset(root, n_sites, seed=3, chrom="3", n_dmr=10, dmr_len=300):
+def make_bed_dataset(root, n_sites, seed=3, chrom="3", n_dmr=10, dmr_len=300, with_regime=False):
     """The pipeline phase's input: a tab-separated CpG list (seqID, start)
     and 2 control + 2 case BED methylation files of a seeded chromosome,
     regimes and counts drawn as ``make_dataset`` draws them, with case-only
     DMR windows. A third of the sites carry both strands (the counts split
     between a + and a - record), the rest a + record; sites without reads
     have no record. Returns (CpG file, control BEDs, case BEDs, DMR mask,
-    0-based positions)."""
+    0-based positions), and the control regime of every site after them
+    with ``with_regime``."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -497,6 +571,8 @@ def make_bed_dataset(root, n_sites, seed=3, chrom="3", n_dmr=10, dmr_len=300):
 
     controls = [bed(os.path.join(root, f"control_{i}.bed"), regime) for i in range(2)]
     cases = [bed(os.path.join(root, f"case_{i}.bed"), case_regime) for i in range(2)]
+    if with_regime:
+        return cpg, controls, cases, dmr, pos0, regime
     return cpg, controls, cases, dmr, pos0
 
 
@@ -826,11 +902,14 @@ def robust_phase(device, root, data_dir, sg_dir, dmr, segment_size, buffer_size,
     y = hio.read_count_matrix(os.path.join(data_dir, "n_methylated_reads_control_1.txt.gz"))[:T]
     n = hio.read_count_matrix(os.path.join(data_dir, "n_total_reads_control_1.txt.gz"))[:T]
     tables = []
-    for dev, dtype in ((torch.device("cpu"), torch.float64), (device, torch.float32)):
+    for dev, dtype in ((torch.device("cpu"), torch.float64), (torch.device("cpu"), torch.float32),
+                       (device, torch.float32)):
         a, b = mu_sigma_to_alpha_beta(torch.tensor(MU, dtype=dtype, device=dev),
                                       torch.tensor(SIGMA, dtype=dtype, device=dev))
-        tables.append(robust_emission_log_prob_table(y, n, a, b, dtype=dtype).cpu().double())
-    rel = float(((tables[1] - tables[0]).abs() / tables[0].abs()).max())
+        tables.append(robust_emission_log_prob_table(y, n, a, b, dtype=dtype).cpu())
+    check(torch.equal(tables[1], tables[2]),
+          f"robust: the card's f32 table differs from the CPU's on {int((tables[1] != tables[2]).sum())} entries")
+    rel = float(((tables[2].double() - tables[0]).abs() / tables[0].abs()).max())
     check(rel <= 1e-5, f"robust: the card's f32 table is {rel:.3g} off the f64 CPU table (rtol 1e-5)")
 
     def run(name, extra):
@@ -859,7 +938,8 @@ def robust_phase(device, root, data_dir, sg_dir, dmr, segment_size, buffer_size,
     stats = {"sites": T, "logZ": log_z, "logZ_plain": plain_log_z, "wall_s": wall, "plain_wall_s": plain_wall,
              "table_max_rel_err": rel, "split_in_dmr": in_dmr, "split_outside": out_dmr,
              "launches_per_site": launches / (T - 1)}
-    print(f"robust: T={T} table on the card vs f64 CPU max rel err {rel:.3g}; logZ {log_z:.3f} (BetaBinomial "
+    print(f"robust: T={T} f32 table on the card equal to the CPU's bit for bit, {rel:.3g} max rel from the f64 "
+          f"table; logZ {log_z:.3f} (BetaBinomial "
           f"{plain_log_z:.3f}); launches={launches}; {wall:.2f} s (BetaBinomial {plain_wall:.2f} s); split prob "
           f"in DMRs {in_dmr:.3f} vs outside {out_dmr:.3f}")
     return stats, launches
@@ -1037,6 +1117,255 @@ def pipeline_phase(device, root, n_sites, batch_size=6000, buffer_size=600, seed
     return stats, launches
 
 
+def sg_pipeline_phase(device, root, n_sites):
+    """run (the single-group pipeline) through the CLI from a sample sheet of
+    the two control BED files of a fourth seeded chromosome "4", at the run
+    verb's defaults (R=6, N=250 so M=244, u=3, d_max 4096, f32): both
+    batched passes with U=2, so 2 (T - 1) launches; the regime modes on the
+    planted high and low stretches; a tabix query against a plain scan;
+    make_bed_file on the stage's regime file against the stage's bytes; a
+    re-run that runs no stage. Then preprocess --format gembs on the same
+    samples' counts written as gemBS tab files. Returns (stats, launches of
+    the first run)."""
+    import gzip
+
+    import numpy as np
+    from hygeia_tpu_torch import cli
+    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
+    from hygeia_tpu_torch.utils import io as hio
+    from hygeia_tpu_torch.utils.tabix import TabixFile
+
+    bed_root = os.path.join(root, "bed4")
+    cpg, controls, _cases, _dmr, pos0, regime = make_bed_dataset(bed_root, n_sites, seed=4, chrom="4",
+                                                                 with_regime=True)
+    sheet = os.path.join(bed_root, "samples.csv")
+    samples = ["s0", "s1"]
+    with open(sheet, "w") as f:
+        f.write("id,file\n" + "".join(f"{sid},{p}\n" for sid, p in zip(samples, controls)))
+    out = os.path.join(root, "sg_pipeline")
+    argv = ["run", "--output_dir", out, "--chroms", "4", "--cpg_file_path", cpg, "--sample_sheet", sheet,
+            "--device", str(device)]
+    KERNEL.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(argv)
+    wall = time.perf_counter() - t0
+    launches = KERNEL.launches
+
+    T = n_sites
+    check(launches == 2 * (T - 1), f"single-group pipeline: kernel launched {launches} times, 2 (T - 1) = "
+                                   f"{2 * (T - 1)}")
+    rows = [r.split("\t") for r in open(os.path.join(out, "trace.tsv")).read().splitlines()[1:]]
+    stage_s = {f"{r[0]}[{r[1]}]": float(r[2]) for r in rows}
+    check(all(r[5] == "ok" for r in rows), f"single-group pipeline: stages not ok: {rows}")
+    check({"ESTIMATE_PARAMETERS[batched]", "ESTIMATE_REGIMES[batched]"} <= {r[0] for r in rows},
+          f"single-group pipeline: the batched passes did not run: {rows}")
+    recovered = {}
+    for sid in samples:
+        names = [f"1_PREPROCESS/{sid}/4/{n}_4.txt.gz" for n in ("positions", "cpg_sites_merged",
+                                                                "n_methylated_reads_case", "n_total_reads_case")]
+        names += [f"2_ESTIMATE_PARAMETERS/{sid}/4/{n}_4.csv.gz" for n in ("theta", "theta_trace", "p", "omega",
+                                                                         "kappa")]
+        names += [f"3_ESTIMATE_REGIMES/{sid}/4/regime_probabilities_4.csv.gz",
+                  f"4_SINGLE_GROUP_OUTPUT/{sid}/{sid}_regimes_4.bed.gz",
+                  f"4_SINGLE_GROUP_OUTPUT/{sid}/{sid}_regimes_4.bed.gz.tbi"]
+        for name in names:
+            check(os.path.exists(os.path.join(out, name)), f"single-group pipeline: missing {name}")
+        check(not os.path.exists(os.path.join(out, f"2_ESTIMATE_PARAMETERS/{sid}/4/regime_probabilities_4.csv.gz")),
+              "single-group pipeline: the parameter pass wrote regime probabilities")
+        reg_file = os.path.join(out, f"3_ESTIMATE_REGIMES/{sid}/4/regime_probabilities_4.csv.gz")
+        header, probs = hio.read_headed_table(reg_file)
+        check(probs.shape == (T, 1 + R) and np.array_equal(probs[:, 0], pos0),
+              f"single-group pipeline: {sid} regime table {probs.shape}")
+        recovered[sid] = _recovered(probs[:, 1:], regime)
+        bed_gz = os.path.join(out, f"4_SINGLE_GROUP_OUTPUT/{sid}/{sid}_regimes_4.bed.gz")
+        recs = [ln.split("\t") for ln in gzip.decompress(open(bed_gz, "rb").read()).decode().splitlines()]
+        check(len(recs) == T, f"single-group pipeline: {sid} BED has {len(recs)} records")
+        lo, hi = int(recs[T // 3][1]), int(recs[T // 3 + 200][2])
+        hits = list(TabixFile(bed_gz).query("4", lo, hi))
+        scan = [r for r in recs if int(r[1]) < hi and int(r[2]) > lo]
+        check(len(hits) == len(scan) and len(hits) > 0,
+              f"single-group pipeline: tabix query gave {len(hits)} records, a plain scan {len(scan)}")
+        remade = os.path.join(root, f"remade_{sid}.bed")
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["make_bed_file", "--chr", "4", "--regimes_file", reg_file, "--output_file", remade,
+                      "--bgzip"])
+        for ext in ("", ".tbi"):
+            check(open(remade + ".gz" + ext, "rb").read() == open(bed_gz + ext, "rb").read(),
+                  f"single-group pipeline: make_bed_file differs from the stage's .bed.gz{ext}")
+
+    t1 = time.perf_counter()
+    KERNEL.launches = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(argv)
+    wall2 = time.perf_counter() - t1
+    rows2 = [r.split("\t") for r in open(os.path.join(out, "trace.tsv")).read().splitlines()[1:]]
+    check(KERNEL.launches == 0 and rows2 and all(r[3] == "True" for r in rows2),
+          f"single-group pipeline: the resumed run ran stages again ({KERNEL.launches} launches, {rows2})")
+
+    # The same samples' counts as gemBS tab files (chr-prefixed contigs).
+    gembs_dir = os.path.join(root, "gembs")
+    os.makedirs(gembs_dir, exist_ok=True)
+    gcpg = os.path.join(gembs_dir, "cpg.tsv")
+    with open(gcpg, "w") as f:
+        f.write("seqID\tstart\n" + "".join(f"chr4\t{p + 1}\n" for p in pos0))
+    gargv = ["preprocess", "--cpg_file_path", gcpg, "--output_path", os.path.join(gembs_dir, "out"),
+             "--chromosome", "4", "--format", "gembs"]
+    want = {}
+    for sid in samples:
+        pre = os.path.join(out, f"1_PREPROCESS/{sid}/4")
+        meth = hio.read_count_matrix(os.path.join(pre, "n_methylated_reads_case_4.txt.gz"))[:, 0]
+        total = hio.read_count_matrix(os.path.join(pre, "n_total_reads_case_4.txt.gz"))[:, 0]
+        want[sid] = (meth, total)
+        path = os.path.join(gembs_dir, f"{sid}.tsv")
+        with open(path, "w") as f:
+            f.write(f"Contig\tPos0\tRef\t{sid}:non_conv\t{sid}:conv\n")
+            for p, m, t in zip(pos0, meth, total):
+                if t > 0:
+                    f.write(f"chr4\t{p}\tCG\t{int(m)}\t{int(t - m)}\n")
+            f.write(f"chr5\t{pos0[0]}\tCG\t9\t9\nchr4\t{pos0[1]}\tCA\t9\t9\n")  # filtered rows
+        gargv += ["--control_data_path", path, "--control_id_names", sid]
+    t2 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(gargv)
+    gembs_s = time.perf_counter() - t2
+    gout = os.path.join(gembs_dir, "out")
+    check(np.array_equal(hio.read_positions(os.path.join(gout, "positions_4.txt.gz")), pos0),
+          "gemBS preprocess: positions differ from the CpG list")
+    gm = hio.read_count_matrix(os.path.join(gout, "n_methylated_reads_control_4.txt.gz"))
+    gt = hio.read_count_matrix(os.path.join(gout, "n_total_reads_control_4.txt.gz"))
+    for i, sid in enumerate(samples):
+        check(np.array_equal(gm[:, i], want[sid][0]) and np.array_equal(gt[:, i], want[sid][1]),
+              f"gemBS preprocess: {sid}'s counts differ from the ones written")
+
+    # The same preprocessed directories (the samples= form) with the
+    # learning settings of tests/test_orchestrator.py's single-group run
+    # (an update every 50 sites at 20 times the rate). At the CLI's
+    # defaults the regime pass from the port's start draw stays in regime
+    # 0 once its float32 hazard is 0 (no exit latch), in the JAX package
+    # too, so the recovery above is printed, not held.
+    from hygeia_tpu_torch.pipeline.orchestrator import run_single_group
+
+    KERNEL.launches = 0
+    t3 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out2 = run_single_group(output_dir=os.path.join(root, "sg_pipeline_learn"), chroms=["4"], device=device,
+                                samples=[(sid, os.path.join(out, f"1_PREPROCESS/{sid}/4")) for sid in samples],
+                                mu=MU, sigma=SIGMA, u=3, n_steps_without_parameter_update=50,
+                                learning_rate_factor=0.2)
+    learn_s = time.perf_counter() - t3
+    launches2 = KERNEL.launches
+    check(launches2 == 2 * (T - 1), f"single-group pipeline (samples=): kernel launched {launches2} times, "
+                                    f"2 (T - 1) = {2 * (T - 1)}")
+    learned = {}
+    for sid in samples:
+        _, probs = hio.read_headed_table(os.path.join(out2, f"3_ESTIMATE_REGIMES/{sid}/4/regime_probabilities_4.csv.gz"))
+        learned[sid] = _recovered(probs[:, 1:], regime)
+        check(learned[sid] > 0.6, f"single-group pipeline (samples=): {sid} recovers {learned[sid]:.3f} of the "
+                                  "planted high and low stretches")
+
+    stats = {"sites": T, "samples": len(samples), "wall_s": wall, "stage_s": stage_s,
+             "recovered_high_low_cli_defaults": recovered, "recovered_high_low_learning": learned,
+             "learning_run_s": learn_s, "resumed_wall_s": wall2, "gembs_preprocess_s": gembs_s,
+             "launches_per_site": (launches + launches2) / (4 * (T - 1))}
+    print(f"single-group pipeline: {T} CpGs x {len(samples)} samples from BED files: launches={launches}; "
+          f"{wall:.2f} s, by stage {stage_s}; planted stretches recovered at the CLI defaults {recovered}; tabix "
+          f"queries equal plain scans; make_bed_file equals the stage's bytes; resumed run {wall2:.2f} s, no stage "
+          f"again; gemBS preprocess of the same counts {gembs_s:.2f} s, counts equal; samples= run with updates "
+          f"every 50 sites at rate 0.2: launches={launches2}, {learn_s:.2f} s, planted stretches recovered {learned}")
+    return stats, launches + launches2
+
+
+def _recovered(probs, regime):
+    """Share of the planted high (regime 0) and low (regime 1) stretches'
+    sites whose most probable regime is the planted one."""
+    planted = regime <= 1
+    return float((probs.argmax(1)[planted] == regime[planted]).mean())
+
+
+# Mean |marginal - backward-simulation| probability, phase 14 against phase
+# 7 on the same sites: the split probability, and the 2R regime
+# probabilities of every site. Each is about 2.3 times the larger of the
+# two seeds' readings on an H100 (0.043 and 0.0295).
+MARGINAL_SPLIT_BOUND = 0.1
+MARGINAL_REGIME_BOUND = 0.07
+
+
+def marginal_phase(device, root, data_dir, sg_dir, dmr, segment_size, buffer_size, slice_dir, slice_stats,
+                   seeds=(0, 1), window=64):
+    """infer --marginal (runner.infer_segment as the CLI calls it) on batch 0
+    of phase 5's chromosome with phase 6's theta, both seeds in one call
+    (M=50, N=2400, window 64): T - 1 launches, logZ finite, the spill count,
+    the split probability higher inside the planted DMRs than outside, the
+    split and the regime probabilities within MARGINAL_SPLIT_BOUND and
+    MARGINAL_REGIME_BOUND (mean absolute) of phase 7's backward-simulation
+    ones on the same sites; peak memory beside phase 7's. Returns (stats,
+    launches)."""
+    import numpy as np
+    import torch
+    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
+    from hygeia_tpu_torch.two_group.runner import infer_segment
+
+    T, N = segment_size + buffer_size, 50 * (2 * R + R * R)
+    results = os.path.join(root, "results_marginal")
+    torch.cuda.reset_peak_memory_stats(device)
+    KERNEL.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        log_z = infer_segment(data_dir=data_dir, single_group_dir=sg_dir, results_dir=results, chrom="1",
+                              device=device, batch=0, seed=list(seeds), segment_size=segment_size,
+                              buffer_size=buffer_size, marginal=True, marginal_window=window)
+    wall = time.perf_counter() - t0
+    launches = KERNEL.launches
+    peak = torch.cuda.max_memory_allocated(device)
+    text = out.getvalue()
+    print(text.strip())
+
+    check(launches == T - 1, f"marginal: kernel launched {launches} times for T={T} sites (one call, both seeds)")
+    path = os.path.join(results, "chrom_1_0")
+    ref = np.load(os.path.join(slice_dir, f"optimal_split_probs_{N}_0.npz"))["arr_0"][:segment_size]
+    ref_regime = np.load(os.path.join(slice_dir, f"optimal_regime_probs_{N}_0.npz"))["arr_0"][:segment_size]
+    spills, diffs, regime_diffs, splits = {}, {}, {}, []
+    for s in seeds:
+        check(math.isfinite(log_z[s][N]), f"marginal: seed {s} logZ not finite: {log_z[s][N]}")
+        check(f"seed {s}: degenerate_steps=0" in text, f"marginal: seed {s} degenerate filter steps")
+        spill = [ln for ln in text.splitlines() if ln.startswith(f"marginal filter seed {s}: spill_count=")]
+        check(len(spill) == 1, f"marginal: seed {s} printed no spill count")
+        spills[s] = int(spill[0].split("=")[1].split()[0])
+        split = np.load(os.path.join(path, f"optimal_split_probs_{N}_{s}.npz"))["arr_0"]
+        regime = np.load(os.path.join(path, f"optimal_regime_probs_{N}_{s}.npz"))["arr_0"]
+        check(split.shape == (segment_size,) and regime.shape == (segment_size, 2 * R),
+              f"marginal: seed {s} shapes {split.shape} {regime.shape}")
+        check(bool(np.isfinite(split).all()) and np.allclose(regime[:, :R].sum(1), 1, atol=1e-4),
+              f"marginal: seed {s} probabilities not finite or not normalised")
+        diffs[s] = float(np.abs(split - ref).mean())
+        check(diffs[s] <= MARGINAL_SPLIT_BOUND, f"marginal: seed {s} split probabilities {diffs[s]:.4f} (mean abs) "
+                                                f"from phase 7's, bound {MARGINAL_SPLIT_BOUND}")
+        regime_diffs[s] = float(np.abs(regime - ref_regime).mean())
+        check(regime_diffs[s] <= MARGINAL_REGIME_BOUND,
+              f"marginal: seed {s} regime probabilities {regime_diffs[s]:.4f} (mean abs) from phase 7's, bound "
+              f"{MARGINAL_REGIME_BOUND}")
+        splits.append(split)
+    split = np.mean(splits, axis=0)
+    d = dmr[:segment_size]
+    in_dmr, out_dmr = float(split[d].mean()), float(split[~d].mean())
+    check(in_dmr > out_dmr, f"marginal: split probability inside DMRs {in_dmr:.3f} <= outside {out_dmr:.3f}")
+    stats = {"sites": T, "seeds": list(seeds), "window": window, "logZ": {s: log_z[s][N] for s in seeds},
+             "spill_count": spills, "wall_s": wall, "ms_per_site": 1e3 * wall / T,
+             "split_mean_abs_diff_vs_slice": diffs, "regime_mean_abs_diff_vs_slice": regime_diffs,
+             "split_in_dmr": in_dmr, "split_outside": out_dmr,
+             "max_memory_allocated_bytes": peak, "slice_max_memory_allocated_bytes":
+             slice_stats["max_memory_allocated_bytes"], "launches_per_site": launches / (T - 1)}
+    print(f"marginal: T={T} seeds {list(seeds)} in one call, window {window}: launches={launches}; logZ "
+          f"{[round(log_z[s][N], 3) for s in seeds]}; spills {spills}; {wall:.2f} s ({stats['ms_per_site']:.3f} "
+          f"ms/site); split prob in DMRs {in_dmr:.3f} vs outside {out_dmr:.3f}; mean |split - phase 7's| {diffs} "
+          f"(bound {MARGINAL_SPLIT_BOUND}); mean |regime - phase 7's| {regime_diffs} (bound {MARGINAL_REGIME_BOUND}); "
+          f"max_memory_allocated {peak} (phase 7: "
+          f"{slice_stats['max_memory_allocated_bytes']})")
+    return stats, launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--chrom_sites", type=int, default=40_000,
@@ -1054,9 +1383,16 @@ def main(argv=None):
     ap.add_argument("--theta_warmup", type=int, default=8192, help="blocked theta's warmup sites (default 8192)")
     ap.add_argument("--pipeline_sites", type=int, default=13_000,
                     help="CpGs of the pipeline phase's chromosome (default 13000; batches of 6000 + 600)")
+    ap.add_argument("--sg_pipeline_sites", type=int, default=5_000,
+                    help="CpGs of the single-group pipeline phase's chromosome (default 5000)")
+    ap.add_argument("--marginal_sites", type=int, default=2_000,
+                    help="infer --marginal's segment size (default 2000)")
+    ap.add_argument("--marginal_buffer", type=int, default=200, help="infer --marginal's halo size (default 200)")
     args = ap.parse_args(argv)
     if args.sites + args.buffer > args.chrom_sites:
         ap.error("the infer segment and halo must fit in the chromosome")
+    if args.marginal_sites > args.sites:
+        ap.error("the marginal segment must lie inside phase 7's segment")
     if args.sites + args.buffer <= args.stream_block:
         ap.error("the infer window must be longer than one streamed block")
 
@@ -1105,6 +1441,10 @@ def main(argv=None):
         bl_stats, bl_launches = blocked_phase(device, root, regime, args.theta_block, args.theta_halo,
                                               args.theta_warmup)
         pl_stats, pl_launches = pipeline_phase(device, root, args.pipeline_sites)
+        sgp_stats, sgp_launches = sg_pipeline_phase(device, root, args.sg_pipeline_sites)
+        mg_stats, mg_launches = marginal_phase(device, root, data_dir, sg_dir, dmr, args.marginal_sites,
+                                               args.marginal_buffer, os.path.join(root, "results", "chrom_1_0"),
+                                               stats)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1121,7 +1461,8 @@ def main(argv=None):
         "route": "cuda",
         "source": "hygeia_tpu_torch/csrc/optimal_resampling.cu",
         "replaces": "hygeia_tpu/ops/pallas_resampling.py:50",
-        "launches": sg_launches + launches + st_launches + ch_launches + rb_launches + bl_launches + pl_launches,
+        "launches": (sg_launches + launches + st_launches + ch_launches + rb_launches + bl_launches + pl_launches
+                     + sgp_launches + mg_launches),
         "launches_single_group": sg_launches,
         "launches_two_group": launches,
         "launches_streamed": st_launches,
@@ -1129,6 +1470,8 @@ def main(argv=None):
         "launches_robust": rb_launches,
         "launches_blocked": bl_launches,
         "launches_pipeline": pl_launches,
+        "launches_single_group_pipeline": sgp_launches,
+        "launches_marginal": mg_launches,
         # This run's counts per site, per path: over the resampling sites
         # (single group, two group), over the window's sites (streamed) and
         # over the sites of the chunks' windows (chromosome: one launch
@@ -1139,7 +1482,9 @@ def main(argv=None):
                               "chromosome": ch_stats["launches_per_site"],
                               "robust": rb_stats["launches_per_site"],
                               "blocked": bl_stats["launches_per_site"],
-                              "pipeline": pl_stats["launches_per_site"]},
+                              "pipeline": pl_stats["launches_per_site"],
+                              "single_group_pipeline": sgp_stats["launches_per_site"],
+                              "marginal": mg_stats["launches_per_site"]},
         "max_abs_err": max_err,
         # The top-level times are the single-group engine's shape.
         "shape": shapes["single_group"],
@@ -1156,7 +1501,7 @@ def main(argv=None):
         "by_shape": {k: {"shape": shapes[k], **times[k]} for k in shapes},
     }], "card": card, "hazard_onsets": onsets, "single_group": sg_stats, "slice": stats,
         "streamed": st_stats, "chromosome": ch_stats, "robust": rb_stats, "blocked": bl_stats,
-        "pipeline": pl_stats}))
+        "pipeline": pl_stats, "single_group_pipeline": sgp_stats, "marginal": mg_stats}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

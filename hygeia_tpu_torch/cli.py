@@ -1,15 +1,20 @@
 """The port's command-line interface:
 
-  preprocess                        BED -> per-chromosome count matrices
+  preprocess                        BED or gemBS -> per-chromosome count matrices
   get_chrom_segments                positions -> (chrom, segment_index) csv
   infer                             two-group filter + backward simulation
+                                    (or the adaptive-lag marginal filter)
   aggregate                         merge per-(batch, seed) outputs
   get_dmps                          FDR-controlled DMP calling
   estimate_parameters_and_regimes   single-group online engine
+  make_bed_file                     regime probabilities -> BED9 (+ bgzip, tabix)
   run --two_group                   the two-group pipeline, resumable
+  run                               the single-group pipeline, resumable
 
     python -m hygeia_tpu_torch.cli run --two_group --output_dir out --chroms 22 \\
         --cpg_file_path cpg.tsv --control_data_path c.bed ... --device cuda
+    python -m hygeia_tpu_torch.cli run --output_dir out --chroms 22 \\
+        --cpg_file_path cpg.tsv --sample_sheet samples.csv --device cuda
 
 Same flags and defaults as the verbs of ``hygeia_tpu.cli``; the verbs that
 run the model (``infer``, ``estimate_parameters_and_regimes``, ``run``)
@@ -45,7 +50,7 @@ def build_parser():
     sp.add_argument("--control_id_names", action="append", default=[])
     sp.add_argument("--chromosome", default="22")
     sp.add_argument("--format", choices=["bed", "gembs"], default="bed",
-                    help="input flavour: bismark BED; gemBS tab files are not ported yet (raises)")
+                    help="input flavour: bismark BED or gemBS tab files")
 
     sp = sub.add_parser("get_chrom_segments")
     sp.add_argument("--input_file", required=True)
@@ -70,6 +75,13 @@ def build_parser():
     sp.add_argument("--chrom", default="21")
     sp.add_argument("--test_regime_combinations", action="store_true")
 
+    sp = sub.add_parser("make_bed_file", help="regime probabilities -> BED9 track")
+    sp.add_argument("--chr", required=True)
+    sp.add_argument("--regimes_file", required=True)
+    sp.add_argument("--output_file", required=True)
+    sp.add_argument("--bgzip", action="store_true",
+                    help="also bgzip-compress and tabix-index the BED")
+
     sp = sub.add_parser("run", help="the pipeline; resumable")
     sp.add_argument("--two_group", action="store_true")
     sp.add_argument("--output_dir", required=True)
@@ -77,7 +89,7 @@ def build_parser():
     sp.add_argument("--cpg_file_path", default=None)
     sp.add_argument("--preprocessed_dir", default=None)
     sp.add_argument("--sample_sheet", default=None,
-                    help="CSV with id,file columns (single-group mode: not ported yet)")
+                    help="CSV with id,file columns (single-group mode)")
     sp.add_argument("--max_retries", type=int, default=5, help="per-unit retries before ignore")
     sp.add_argument("--control_data_path", action="append", default=[])
     sp.add_argument("--control_id_names", action="append", default=[])
@@ -123,7 +135,9 @@ def build_parser():
                     help="use the robust (beta-divergence) emission score")
     sp.add_argument("--robust_beta", type=float, default=0.05)
     sp.add_argument("--marginal", action="store_true",
-                    help="adaptive-lag marginal filter: not ported yet, raises")
+                    help="adaptive-lag marginal filter in place of the filter and backward "
+                         "simulation (split and regime probabilities only; takes precedence "
+                         "over --streaming_blocks)")
     sp.add_argument("--marginal_epsilon", type=float, default=0.01)
     sp.add_argument("--marginal_window", type=int, default=64)
     sp.add_argument("--streaming_blocks", type=int, default=None,
@@ -248,11 +262,11 @@ def _estimate_parameters_and_regimes(args):
 
 def _preprocess(args):
     if args.format == "gembs":
-        raise NotImplementedError("preprocess --format gembs is not ported yet (ROADMAP.md, item 10: "
-                                  "the single-group half)")
-    from hygeia_tpu_torch.pipeline.preprocess_bed import process_bed
+        from hygeia_tpu_torch.pipeline.preprocess_gembs import process_gembs as process
+    else:
+        from hygeia_tpu_torch.pipeline.preprocess_bed import process_bed as process
 
-    n = process_bed(
+    n = process(
         args.cpg_file_path, args.output_path, args.chromosome,
         control_data_paths=args.control_data_path,
         control_id_names=args.control_id_names or [f"control_{i}" for i in range(len(args.control_data_path))],
@@ -265,8 +279,7 @@ def _preprocess(args):
 
 def _run(args):
     if not args.two_group:
-        raise NotImplementedError("run without --two_group (the single-group pipeline) is not ported yet "
-                                  "(ROADMAP.md, item 10: the single-group half)")
+        return _run_single_group(args)
     from hygeia_tpu_torch.pipeline.orchestrator import run_two_group
 
     out = run_two_group(
@@ -301,6 +314,35 @@ def _run(args):
     return out
 
 
+def _run_single_group(args):
+    """``run`` without ``--two_group``: the sample sheet's BED files through
+    the single-group pipeline, with the run verb's own defaults (mu, sigma,
+    u = --min_cpg_sites_between_change_points, N), as the JAX CLI passes
+    them."""
+    from hygeia_tpu_torch.pipeline.orchestrator import run_single_group
+
+    if not args.sample_sheet:
+        raise SystemExit("single-group `run` needs --sample_sheet (CSV with id,file columns) "
+                         "plus --cpg_file_path")
+    out = run_single_group(
+        output_dir=args.output_dir,
+        chroms=args.chroms,
+        device=None if args.stub_run else resolve_device(args.device),
+        sample_sheet=args.sample_sheet,
+        cpg_file_path=args.cpg_file_path,
+        mu=args.mu,
+        sigma=args.sigma,
+        u=args.min_cpg_sites_between_change_points,
+        n_particles=args.n_particles,
+        resume=not args.no_resume,
+        stub_run=args.stub_run,
+        max_retries=args.max_retries,
+        bucket_dir=args.bucket_dir,
+    )
+    print(f"pipeline complete: {args.output_dir}")
+    return out
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.verb == "estimate_parameters_and_regimes":
@@ -325,6 +367,12 @@ def main(argv=None):
         return call_dmps(args.results_dir, args.output_dir, args.chrom, n_regimes=args.n_regimes,
                          fdr_thresholds=tuple(args.fdr_thresholds or [0.01, 0.05]),
                          test_regime_combinations=args.test_regime_combinations)
+    if args.verb == "make_bed_file":
+        from hygeia_tpu_torch.pipeline.bed import make_bed
+
+        make_bed(args.chr, args.regimes_file, args.output_file, compress=args.bgzip)
+        print(f"Completed processing for chromosome {args.chr}")
+        return None
     if args.verb == "run":
         return _run(args)
     if args.verb == "infer":
@@ -353,6 +401,8 @@ def main(argv=None):
             robust_beta=args.robust_beta,
             trace_dir=args.trace_dir,
             marginal=args.marginal,
+            marginal_epsilon=args.marginal_epsilon,
+            marginal_window=args.marginal_window,
             streaming_blocks=args.streaming_blocks,
         )
 

@@ -1,12 +1,17 @@
 """Elementary log-densities and the transition-matrix packing, on tensors.
 
 Counterpart of hygeia_tpu/ops/distributions.py; the same formulas with
-``torch.lgamma`` in place of ``gammaln``. All functions broadcast.
+``torch.lgamma`` in place of ``gammaln``. All functions broadcast. In
+float32 the log-pmfs take XLA's CPU ``lgamma``, ``log`` and ``log1p``
+(``ops/xla_f32.py``), so they are the JAX package's float32 values bit for
+bit, on the CPU and on a card alike.
 """
 
 from __future__ import annotations
 
 import torch
+
+from hygeia_tpu_torch.ops import xla_f32
 
 _NEG_INF = float("-inf")
 
@@ -32,7 +37,7 @@ def mu_sigma_to_alpha_beta(mu, sigma):
 
 def beta_binomial_log_pmf(x, n, alpha, beta):
     """Log-pmf of BetaBinomial(n; alpha, beta) at x; -inf outside 0 <= x <= n."""
-    lg = torch.lgamma
+    lg = xla_f32.lgamma if torch.result_type(n, alpha) == torch.float32 else torch.lgamma
     lp = (
         lg(n + 1.0)
         - lg(x + 1.0)
@@ -51,13 +56,15 @@ def beta_binomial_log_pmf(x, n, alpha, beta):
 def neg_binomial_log_pmf(x, size, prob):
     """Log-pmf of NegativeBinomial(size, success prob) at count x >= 0,
     with the point mass at 0 when prob == 0."""
-    lg = torch.lgamma
+    f32 = torch.result_type(x, prob) == torch.float32
+    lg = xla_f32.lgamma if f32 else torch.lgamma
+    log, log1p = (xla_f32.log, xla_f32.log1p) if f32 else (torch.log, torch.log1p)
     lp = (
         lg(x + size)
         - lg(size)
         - lg(x + 1.0)
-        + size * torch.log1p(-prob)
-        + x * torch.log(prob)
+        + size * log1p(-prob)
+        + x * log(prob)
     )
     lp = torch.where(prob == 0.0, torch.where(x == 0.0, 0.0, _NEG_INF), lp)
     return torch.where(x >= 0, lp, _NEG_INF)

@@ -5,12 +5,19 @@ Counterpart of hygeia_tpu/ops/emissions.py::emission_log_prob_table:
     E[t, r] = sum_s log BetaBinomial(y[t, s]; n[t, s], alpha_r, beta_r)
 
 one (T, R) table per group; the filter gathers E[t, r_particle].
+
+Both tables are JAX's operations one for one, and every sum adds in XLA's
+CPU order (``xla_f32.reduce_sum``) at any dtype. In float32 every
+transcendental is XLA's CPU one (``ops/xla_f32.py``), so the tables are
+the JAX package's eager float32 tables bit for bit, on the CPU and on a
+card; in float64 they are PyTorch's (rtol 1e-12 of JAX's).
 """
 
 from __future__ import annotations
 
 import torch
 
+from hygeia_tpu_torch.ops import xla_f32
 from hygeia_tpu_torch.ops.distributions import beta_binomial_log_pmf
 
 
@@ -33,20 +40,7 @@ def emission_log_prob_table(
     n = torch.as_tensor(n_total, dtype=dtype, device=device)[:, :, None]
     a = torch.as_tensor(alpha, dtype=dtype, device=device)[None, None, :]
     b = torch.as_tensor(beta, dtype=dtype, device=device)[None, None, :]
-    return torch.sum(beta_binomial_log_pmf(y, n, a, b), dim=1)
-
-
-def _pairwise_sum0(e):
-    """Sum over axis 0 by halving: each element's additions run in an
-    order fixed by the axis' length alone, on any device and for any shape
-    of the other axes (a library reduction may split a row by the number
-    of outputs). Zero rows pad an odd length; adding 0 is exact."""
-    while e.shape[0] > 1:
-        if e.shape[0] % 2:
-            e = torch.cat([e, e.new_zeros((1, *e.shape[1:]))])
-        h = e.shape[0] // 2
-        e = e[:h] + e[h:]
-    return e[0]
+    return xla_f32.reduce_sum(beta_binomial_log_pmf(y, n, a, b), 1)
 
 
 def robust_emission_log_prob_table(
@@ -66,7 +60,8 @@ def robust_emission_log_prob_table(
     ``chunk_elements`` values, each with the table's global max(n). The
     log-sum-exp over x and the sum over samples add in an order that does
     not depend on the chunking, so the table is the same bit for bit at
-    any chunk size.
+    any chunk size: XLA's, which depends on X and S alone. The log-sum-exp
+    is ``jax.scipy.special.logsumexp``'s operation for operation.
     """
     if device is None and isinstance(alpha, torch.Tensor):
         device = alpha.device
@@ -79,6 +74,10 @@ def robust_emission_log_prob_table(
     R = a.shape[0]
     X = max(int(n.max()) if n.numel() else 0, 1)
     x = torch.arange(X, dtype=dtype, device=device)[:, None, None, None]
+    if dtype == torch.float32:
+        exp, log, div = xla_f32.exp, xla_f32.log, xla_f32._div
+    else:
+        exp, log, div = torch.exp, torch.log, torch.div
     step = max(1, int(chunk_elements) // (X * S * R))
     out = torch.empty((T, R), dtype=dtype, device=device)
     for lo in range(0, T, step):
@@ -87,10 +86,10 @@ def robust_emission_log_prob_table(
         lp_y = beta_binomial_log_pmf(yc, nc, a, b)  # (Tc, S, R)
         z = (bd + 1.0) * beta_binomial_log_pmf(x, nc[None], a, b)  # (X, Tc, S, R); -inf where x > n
         m = z.amax(dim=0)
-        lse = torch.log(_pairwise_sum0(torch.exp(z - m))) + m
-        score = torch.exp(bd * lp_y) / bd - torch.exp(lse) / (bd + 1.0)
-        acc = score[:, 0]
-        for s in range(1, S):
-            acc = acc + score[:, s]
-        out[lo:hi] = acc
+        m = torch.where(torch.isfinite(m), m, 0.0)
+        lse = log(xla_f32.reduce_sum(exp(z - m), 0).abs()) + m
+        e_lse = exp(lse)
+        integral = div(e_lse, (bd + 1.0).expand_as(e_lse))
+        e_y = exp(bd * lp_y)
+        out[lo:hi] = xla_f32.reduce_sum(div(e_y, bd.expand_as(e_y)) - integral, 1)
     return out

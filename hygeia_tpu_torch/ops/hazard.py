@@ -44,7 +44,10 @@ evaluates it in the table's dtype. That is load-bearing: in float32 the
 survival function underflows in the deep tail and the reference's 0.1 guard
 takes over from a sojourn that depends on the f32 evaluation itself, so a
 table computed in f64 and cast would switch to the guard later than the JAX
-package's f32 table does.
+package's f32 table does. In float32 the table is JAX-CPU's eager table
+bit for bit: ``betainc`` replays XLA's compiled loop with ``xla_f32``'s
+functions and the FMAs LLVM contracts there, and the log-pmf and the ratio
+take ``xla_f32``'s lgamma, log, log1p and exp.
 """
 
 from __future__ import annotations
@@ -300,7 +303,9 @@ def _lentz(a, b, x, *, num_iterations, small):
     """Lentz-Thompson-Barnett evaluation of the incomplete-beta continued
     fraction (DLMF 8.17.22). Like XLA's loop, every element keeps iterating
     until ALL elements have converged, so the result does not depend on
-    where each element alone would have stopped."""
+    where each element alone would have stopped. In float32 the update
+    ``d = 1 + num * d`` is one FMA, as in XLA's compiled loop."""
+    f32 = x.dtype == torch.float32
     one = torch.ones_like(a)
     two = torch.full_like(a, 2.0)
     h = torch.full_like(x, small)  # partial denominator 0 is below `small`
@@ -315,16 +320,16 @@ def _lentz(a, b, x, *, num_iterations, small):
             m = (it - 1) // 2
             if it % 2 == 0:
                 if m == 0:
-                    num = -(a + b) * x / (a + one)
+                    num = xla_f32._div(-(a + b) * x, a + one)
                 else:
-                    num = -(a + m) * (a + b + m) * x / (
-                        (a + two * m) * (a + two * m + one)
+                    num = xla_f32._div(
+                        -(a + m) * (a + b + m) * x, (a + two * m) * (a + two * m + one)
                     )
             else:
-                num = m * (b - m) * x / ((a + two * m - one) * (a + two * m))
-        c = 1.0 + num / c
+                num = xla_f32._div(m * (b - m) * x, (a + two * m - one) * (a + two * m))
+        c = 1.0 + xla_f32._div(num, c)
         c = torch.where(c.abs() < small, small, c)
-        d = 1.0 + num * d
+        d = xla_f32._fma(num, d, 1.0) if f32 else 1.0 + num * d
         d = torch.where(d.abs() < small, small, d)
         d = torch.reciprocal(d)
         delta = c * d
@@ -345,7 +350,12 @@ def _flush_subnormal(v):
 
 
 def betainc(a, b, x):
-    """Regularised incomplete beta I_x(a, b), elementwise, in x's dtype."""
+    """Regularised incomplete beta I_x(a, b), elementwise, in x's dtype.
+
+    In float32 it is XLA's CPU program bit for bit: ``xla_f32``'s
+    functions, the FMAs LLVM contracts (the loop's ``d`` update and
+    ``log(x) * a + log1p(-x) * b``), and XLA's flush-to-zero of the
+    subnormal prefactor and result."""
     a, b, x = torch.broadcast_tensors(a, b, x)
     dtype = x.dtype
     finfo = torch.finfo(dtype)
@@ -364,7 +374,7 @@ def betainc(a, b, x):
 
     # The fraction converges fast for x < (a+1)/(a+b+2); otherwise use the
     # symmetry I_x(a, b) = 1 - I_{1-x}(b, a) (DLMF 8.17.4).
-    fast = x < (a + 1.0) / (a + b + 2.0)
+    fast = x < xla_f32._div(a + 1.0, a + b + 2.0)
     a, b = torch.where(fast, a, b), torch.where(fast, b, a)
     x = torch.where(fast, x, 1.0 - x)
 
@@ -374,12 +384,21 @@ def betainc(a, b, x):
         small=small,
     )
     very_small = finfo.tiny * 2
-    lbeta_small_a = torch.lgamma(b) - torch.lgamma(a + b)
-    lbeta = torch.lgamma(a) + lbeta_small_a
+    if dtype == torch.float32:
+        lgamma, exp, log, log1p = xla_f32.lgamma, xla_f32.exp, xla_f32.log, xla_f32.log1p
+    else:
+        lgamma, exp, log, log1p = torch.lgamma, torch.exp, torch.log, torch.log1p
+    lbeta_small_a = lgamma(b) - lgamma(a + b)
+    lbeta = lgamma(a) + lbeta_small_a
+    log1p_x = log1p(-x)
+    if dtype == torch.float32:
+        big_a_arg = xla_f32._fma(log(x), a, log1p_x * b)
+    else:
+        big_a_arg = log(x) * a + log1p_x * b
     factor = torch.where(
         a < very_small,
-        torch.exp(torch.log1p(-x) * b - lbeta_small_a),
-        torch.exp(torch.log(x) * a + torch.log1p(-x) * b - lbeta) / a,
+        exp(log1p_x * b - lbeta_small_a),
+        xla_f32._div(exp(big_a_arg - lbeta), a),
     )
     result = _flush_subnormal(cf * _flush_subnormal(factor))
     result = torch.where(fast, result, 1.0 - result)
@@ -407,8 +426,11 @@ def rho_two_group(kappa, omega, u, d_max):
         d >= u, neg_binomial_log_pmf(shifted, kappa_c, omega_c), _NEG_INF
     )
     surv_prev = betainc(torch.clamp(shifted, min=1.0), kappa_c, omega_c)
-    log_surv_prev = torch.where(d > u, torch.log(surv_prev), 0.0)
-    rho = torch.where(log_h == _NEG_INF, 0.0, torch.exp(log_h - log_surv_prev))
+    f32 = dtype == torch.float32
+    log_surv_prev = torch.where(d > u, (xla_f32.log if f32 else torch.log)(surv_prev), 0.0)
+    rho = torch.where(
+        log_h == _NEG_INF, 0.0, (xla_f32.exp if f32 else torch.exp)(log_h - log_surv_prev)
+    )
     return torch.where(torch.isfinite(rho), rho, _FIXED_VALUE_INF)
 
 

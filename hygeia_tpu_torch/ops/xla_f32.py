@@ -27,10 +27,15 @@ Rules that keep them exact:
 * XLA's CPU backend runs with denormals-are-zero and flush-to-zero, so
   subnormal inputs are read as 0 and subnormal results are flushed.
 
-Only the domain the hazard tables use is replayed: ``lgamma`` and
-``digamma`` for x >= 0.5. Their reflection branch (x < 0.5) calls XLA's
-``sin``/``cos``, which this module does not replay; it is evaluated with
-PyTorch's and is not bit for bit.
+``lgamma``'s reflection branch (x < 0.5, reached by BetaBinomial shapes
+below 0.5) calls the C library's ``sinf``, which XLA's CPU backend links
+to; ``sin`` replays glibc's (its double-precision polynomials) on the
+branch's domain [0, pi/2]. ``digamma`` is replayed for x >= 0.5 only: its
+reflection branch takes PyTorch's ``sin`` and ``cos`` and is not bit for
+bit.
+
+``reduce_sum`` adds along one axis in the order XLA's CPU backend gives
+``jnp.sum``.
 """
 
 from __future__ import annotations
@@ -74,6 +79,22 @@ _LOG_G_HALF = 2.0149030685424805  # log(7.5)
 _LOG_SQRT_2PI = 0.9189385175704956
 _LOG_PI = 1.1447298526763916
 _PI = 3.1415927410125732
+
+
+# glibc's sinf (sysdeps/ieee754/flt-32/s_sinf.c, __sincosf_table[0]).
+_SINF_HPI_INV = float.fromhex("0x1.45F306DC9C883p+23")  # 2/pi * 2**24
+_SINF_HPI = float.fromhex("0x1.921FB54442D18p0")
+_SINF_C = tuple(float.fromhex(h) for h in (
+    "0x1p0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5",
+    "-0x1.6c087e89a359dp-10", "0x1.99343027bf8c3p-16"))
+_SINF_S = tuple(float.fromhex(h) for h in (
+    "-0x1.555545995a603p-3", "0x1.1107605230bc4p-7", "-0x1.994eb3774cf24p-13"))
+_ABSTOP12_PIO4 = 0x3F4  # top 12 bits of float32 pi/4
+_ABSTOP12_TINY = 0x398  # top 12 bits of float32 2**-12
+
+# XLA's CPU backend splits a sum over more than this many elements into
+# windows of this size (its tree-reduction rewrite).
+_REDUCE_WINDOW = 32
 
 
 def _flush(v):
@@ -172,6 +193,54 @@ def log1p(x):
     return torch.where(x.abs() < _LOG1P_SMALL, small, large)
 
 
+def sin(y):
+    """glibc's float32 ``sinf`` on [0, pi/2], which XLA's CPU ``sine`` calls.
+
+    glibc evaluates it in double: below pi/4 (by the top 12 bits of y) the
+    sine polynomial of y, above it the cosine polynomial of y - pi/2. Each
+    double operation here is exactly rounded; glibc's build contracts some
+    of them into FMAs, which moves the double result by an ulp at most and
+    the float32 result only where that ulp straddles a float32 rounding
+    boundary (on none of 300,000 test points)."""
+    x = y.double()
+    top = (y.view(torch.int32) >> 20) & 0x7FF
+    x2 = x * x
+    x3 = x * x2
+    s = (x + x3 * _SINF_S[0]) + (x3 * x2) * (_SINF_S[1] + x2 * _SINF_S[2])
+    n = torch.floor((torch.floor(x * _SINF_HPI_INV) + 2.0**23) * 2.0**-24)
+    r = x - n * _SINF_HPI
+    r2 = r * r
+    r4 = r2 * r2
+    c1, c2 = _SINF_C[0] + r2 * _SINF_C[1], _SINF_C[3] + r2 * _SINF_C[4]
+    c = (c1 + r4 * _SINF_C[2]) + (r4 * r2) * c2
+    out = torch.where((top < _ABSTOP12_PIO4) | (n == 0.0), s, c)
+    return torch.where(top < _ABSTOP12_TINY, x, out).to(_F32)
+
+
+def reduce_sum(x, dim):
+    """Sum along ``dim`` in XLA's CPU order: left to right, except that an
+    axis longer than 32 is first padded with zeros (half the padding in
+    front, the odd one at the back) to whole windows of 32, each window
+    summed left to right, then the window totals reduced the same way."""
+    x = x.movedim(dim, 0)
+    while x.shape[0] > _REDUCE_WINDOW:
+        n = x.shape[0]
+        w = -(-n // _REDUCE_WINDOW)
+        pad = w * _REDUCE_WINDOW - n
+        z = x.new_zeros((1, *x.shape[1:]))
+        x = torch.cat([z.expand(pad // 2, *x.shape[1:]), x,
+                       z.expand(pad - pad // 2, *x.shape[1:])])
+        x = x.reshape(w, _REDUCE_WINDOW, *x.shape[1:]).movedim(1, 0)
+        acc = x[0]
+        for i in range(1, _REDUCE_WINDOW):
+            acc = acc + x[i]
+        x = acc
+    acc = x[0]
+    for i in range(1, x.shape[0]):
+        acc = acc + x[i]
+    return acc
+
+
 def _lanczos_z(x):
     return torch.where(x < 0.5, -x, x - 1.0)
 
@@ -182,7 +251,7 @@ def _log_t(z):
 
 
 def lgamma(x):
-    """XLA-CPU's float32 log|Gamma(x)|, bit for bit for x >= 0.5."""
+    """XLA-CPU's float32 log|Gamma(x)|, bit for bit."""
     x = _flush(x)
     z = _lanczos_z(x)
     acc = _div(_LANCZOS[0], z + 1.0) + 1.0
@@ -192,11 +261,11 @@ def lgamma(x):
     log_t = _log_t(z)
     t = z + 7.5
     log_y = _fma(log_t, (z + 0.5) - _div(t, log_t), _LOG_SQRT_2PI) + log(acc)
-    # Euler's reflection below 0.5 (PyTorch's sin: not bit for bit).
+    # Euler's reflection below 0.5.
     ax = x.abs()
     frac = ax - torch.floor(ax)
     frac = torch.where(frac > 0.5, 1.0 - frac, frac)
-    log_sin = log(torch.sin(frac * _PI))
+    log_sin = log(sin(frac * _PI))
     refl = torch.where(log_sin.abs() != _INF, (_LOG_PI - log_sin) - log_y, -log_sin)
     out = torch.where(x < 0.5, refl, log_y)
     return torch.where(ax == _INF, _INF, out)

@@ -1,19 +1,22 @@
-"""Pipeline orchestrator: the ``run --two_group`` verb.
+"""Pipeline orchestrator: the ``run`` verb, with and without ``--two_group``.
 
-Counterpart of hygeia_tpu/pipeline/orchestrator.py's two-group pipeline:
-the six stages over (chromosome x segment x seed) work units in one
-process, so the card is taken once. Stage completion is recorded with
-on-disk markers; a re-run skips completed stages. The output tree is the
-JAX pipeline's:
+Counterpart of hygeia_tpu/pipeline/orchestrator.py. The two-group pipeline
+runs its six stages over (chromosome x segment x seed) work units in one
+process, so the card is taken once; the single-group pipeline
+(``run_single_group``) runs its four over (sample x chromosome) units.
+Stage completion is recorded with on-disk markers; a re-run skips
+completed stages. The output trees are the JAX pipeline's:
 
   1_PREPROCESS/ 2_ESTIMATE_PARAMETERS_AND_REGIMES/ 3_GET_CHROM_SEGMENTS/
-  4_INFER/ 5_AGGREGATE_RESULTS/ 6_GET_DMPS/
+  4_INFER/ 5_AGGREGATE_RESULTS/ 6_GET_DMPS/                (two groups)
+  1_PREPROCESS/ 2_ESTIMATE_PARAMETERS/ 3_ESTIMATE_REGIMES/
+  4_SINGLE_GROUP_OUTPUT/                                  (single group)
 
 The theta and INFER stages run on ``device`` (the CLI's ``--device``,
 default cuda); preprocessing, segments, aggregation and DMP calling are
 host numpy work, as in the JAX package. Not ported yet, and raising
-NotImplementedError: the meshed INFER (``mesh_shape``), the work-dir
-mirror (``bucket_dir``) and the single-group pipeline.
+NotImplementedError: the meshed INFER (``mesh_shape``) and the work-dir
+mirror (``bucket_dir``).
 """
 
 from __future__ import annotations
@@ -370,21 +373,31 @@ def _stub_two_group(out, chroms, inference_seeds, n_backward_total):
 
 
 def _sg_setup(units, *, mu, sigma, u, n_particles, epsilon, steps_per_update, learning_rate_exponent,
-              learning_rate_factor, rng_seed, device):
-    """(model, config, (D,) initial theta, [(T_c, R) emission table],
-    [positions]) of the theta stage (both estimates on) for
-    [(pre_dir, chrom, group)] units. The initial theta, the same for every
-    unit, is N(0, I) from a CPU generator seeded with rng_seed (the JAX
+              learning_rate_factor, rng_seed, device, estimate_regimes=True, estimate_parameters=True,
+              theta_fixed=None):
+    """(model, config, initial theta, [(T_c, R) emission table],
+    [positions]) of a single-group stage for [(pre_dir, chrom, group)]
+    units. The initial theta: ``theta_fixed`` (one (D,) theta a unit, given
+    as (U, D)) when given; else, when theta is estimated, N(0, I) from a CPU
+    generator seeded with rng_seed, the same for every unit (the JAX
     package draws it with jax.random.normal, so the packages start from
-    different theta)."""
+    different theta); else the default P and omega (``runner.default_p``,
+    ``DEFAULT_OMEGA``)."""
     from hygeia_tpu_torch.ops.emissions import emission_log_prob_table
     from hygeia_tpu_torch.single_group.engine import EngineConfig
-    from hygeia_tpu_torch.single_group.model import make_model
+    from hygeia_tpu_torch.single_group.model import make_model, parameters_to_theta
+    from hygeia_tpu_torch.single_group.runner import DEFAULT_OMEGA, default_p
 
     R = len(mu)
-    model = make_model(np.asarray(mu), np.asarray(sigma), u, np.full(R, 2.0), d_max=4096, device=device)
-    gen = torch.Generator().manual_seed(int(rng_seed))
-    theta0 = torch.randn((model.dim_theta,), generator=gen, dtype=torch.float64)
+    kappa = np.full(R, 2.0)
+    model = make_model(np.asarray(mu), np.asarray(sigma), u, kappa, d_max=4096, device=device)
+    if theta_fixed is not None:
+        theta0 = torch.as_tensor(np.stack([np.asarray(t, np.float64) for t in theta_fixed]))
+    elif estimate_parameters:
+        gen = torch.Generator().manual_seed(int(rng_seed))
+        theta0 = torch.randn((model.dim_theta,), generator=gen, dtype=torch.float64)
+    else:
+        theta0 = torch.as_tensor(parameters_to_theta(default_p(R), np.asarray(DEFAULT_OMEGA[:R]), kappa))
     tables, positions = [], []
     for pre_dir, chrom, group in units:
         pre_dir = Path(pre_dir)
@@ -393,9 +406,9 @@ def _sg_setup(units, *, mu, sigma, u, n_particles, epsilon, steps_per_update, le
         positions.append(hio.read_positions(pre_dir / f"positions_{chrom}.txt.gz"))
         tables.append(emission_log_prob_table(n_meth, n_total, model.alpha, model.beta))
     cfg = EngineConfig(
-        n_particles_max=n_particles, epsilon=epsilon, estimate_regimes=True, estimate_parameters=True,
-        steps_per_update=steps_per_update, learning_rate_exponent=learning_rate_exponent,
-        learning_rate_factor=learning_rate_factor,
+        n_particles_max=n_particles, epsilon=epsilon, estimate_regimes=estimate_regimes,
+        estimate_parameters=estimate_parameters, steps_per_update=steps_per_update,
+        learning_rate_exponent=learning_rate_exponent, learning_rate_factor=learning_rate_factor,
     )
     return model, cfg, theta0.to(device, torch.float32), tables, positions
 
@@ -416,15 +429,21 @@ def _single_group_on_counts(
     learning_rate_factor,
     rng_seed,
     device,
+    estimate_regimes=True,
+    estimate_parameters=True,
+    theta_fixed=None,
     theta_block_size=None,
     theta_halo=None,
     theta_block_threshold=None,
 ):
-    """The theta stage on one chromosome's count files, on ``device``: the
-    sequential engine, or the blocked one (single_group/blocked.py) at
-    theta_block_threshold CpGs or more; writes the reference-named outputs
-    (theta_{chrom}.csv.gz and the rest). The resampler's uniforms come from
-    a generator on ``device`` seeded with rng_seed."""
+    """The single-group engine on one chromosome's count files, on
+    ``device``: the sequential engine, or the blocked one
+    (single_group/blocked.py) at theta_block_threshold CpGs or more; writes
+    the reference-named outputs (theta_{chrom}.csv.gz and the rest; no
+    regime file unless ``estimate_regimes``). ``theta_fixed``: the (D,)
+    theta to start from (the regime pass of the single-group pipeline). The
+    resampler's uniforms come from a generator on ``device`` seeded with
+    rng_seed."""
     from hygeia_tpu_torch.single_group.blocked import run_online_combined_inference_blocked
     from hygeia_tpu_torch.single_group.engine import run_online_combined_inference
 
@@ -435,30 +454,37 @@ def _single_group_on_counts(
     model, cfg, theta, tables, positions = _sg_setup(
         [(pre_dir, chrom, group)], mu=mu, sigma=sigma, u=u, n_particles=n_particles, epsilon=epsilon,
         steps_per_update=steps_per_update, learning_rate_exponent=learning_rate_exponent,
-        learning_rate_factor=learning_rate_factor, rng_seed=rng_seed, device=device)
+        learning_rate_factor=learning_rate_factor, rng_seed=rng_seed, device=device,
+        estimate_regimes=estimate_regimes, estimate_parameters=estimate_parameters,
+        theta_fixed=None if theta_fixed is None else [theta_fixed])
     E = tables[0]
     gen = torch.Generator(device=device).manual_seed(int(rng_seed))
     if theta_block_size and E.shape[0] >= theta_block_threshold:
-        res = run_online_combined_inference_blocked(model, theta, E, cfg, block_size=theta_block_size,
-                                                    halo=theta_halo, generator=gen)
+        res = run_online_combined_inference_blocked(model, theta.reshape(-1), E, cfg,
+                                                    block_size=theta_block_size, halo=theta_halo,
+                                                    generator=gen)
         probs, trace = res.regime_probs, res.theta_trace
     else:
-        res = run_online_combined_inference(model, theta, E, cfg, generator=gen)
+        res = run_online_combined_inference(model, theta.reshape(-1), E, cfg, generator=gen)
         probs, trace = res.regime_probs[0].cpu().numpy(), res.theta_trace[0].cpu().numpy()
-    _write_sg_outputs(sg_dir, chrom, positions[0], probs, trace, model.n_regimes)
+    _write_sg_outputs(sg_dir, chrom, positions[0], probs if estimate_regimes else None, trace,
+                      model.n_regimes)
 
 
 def _write_sg_outputs(sg_dir, chrom, positions, probs, trace, R):
-    """The theta stage's reference-named outputs: regime_probabilities_,
-    theta_trace_ (the JAX package's native float format, %.9g), p_, omega_,
-    kappa_ and theta_{chrom}.csv.gz."""
+    """The single-group stage's reference-named outputs:
+    regime_probabilities_ (unless ``probs`` is None), theta_trace_ (the JAX
+    package's native float format, %.9g), p_, omega_, kappa_ and
+    theta_{chrom}.csv.gz."""
     from hygeia_tpu_torch.single_group.model import theta_to_parameters
 
     sg_dir = Path(sg_dir)
     sg_dir.mkdir(parents=True, exist_ok=True)
-    cols = [f"regime_{i + 1}" for i in range(R)]
-    hio.write_float_table(sg_dir / f"regime_probabilities_{chrom}.csv.gz", probs,
-                          index=np.asarray(positions[: len(probs)]), header="genomic_position," + ",".join(cols))
+    if probs is not None:
+        cols = [f"regime_{i + 1}" for i in range(R)]
+        hio.write_float_table(sg_dir / f"regime_probabilities_{chrom}.csv.gz", probs,
+                              index=np.asarray(positions[: len(probs)]),
+                              header="genomic_position," + ",".join(cols))
     hio.write_float_table(sg_dir / f"theta_trace_{chrom}.csv.gz", trace,
                           header=",".join(f"theta_{i + 1}" for i in range(trace.shape[1])))
     final = theta_to_parameters(trace[-1], R)
@@ -481,14 +507,18 @@ def _single_group_on_counts_batched(
     learning_rate_factor,
     rng_seed,
     device,
+    estimate_parameters=True,
+    estimate_regimes=True,
+    theta_fixed=None,
 ):
-    """The theta stage for several chromosomes in one engine call on
-    ``device``: one unit a chromosome, each with its own table and length
+    """The single-group engine for several (pre_dir, chromosome) units in
+    one engine call on ``device``: each unit with its own table and length
     (t_limit), all of them taking the draws of one generator seeded with
-    rng_seed, as the sequential stage's single unit does; so each
-    chromosome's outputs are its sequential run's. When every chromosome
+    rng_seed, as the sequential stage's single unit does; so each unit's
+    outputs are its sequential run's. ``theta_fixed``: one (D,) theta a
+    unit (the regime pass of the single-group pipeline). When every unit
     reaches THETA_BLOCK_THRESHOLD the blocked stage runs instead, all
-    (chromosome, block) windows in one call."""
+    (unit, block) windows in one call."""
     from hygeia_tpu_torch.single_group.blocked import run_online_combined_inference_blocked_multi
     from hygeia_tpu_torch.single_group.engine import run_online_combined_inference
 
@@ -496,14 +526,15 @@ def _single_group_on_counts_batched(
         [(pre, chrom, group) for pre, _sg, chrom, group in units], mu=mu, sigma=sigma, u=u,
         n_particles=n_particles, epsilon=epsilon, steps_per_update=steps_per_update,
         learning_rate_exponent=learning_rate_exponent, learning_rate_factor=learning_rate_factor,
-        rng_seed=rng_seed, device=device)
+        rng_seed=rng_seed, device=device, estimate_regimes=estimate_regimes,
+        estimate_parameters=estimate_parameters, theta_fixed=theta_fixed)
     R, U = model.n_regimes, len(units)
     gen = torch.Generator(device=device).manual_seed(int(rng_seed))
     t_limits = [int(E.shape[0]) for E in tables]
     if min(t_limits) >= _tc.THETA_BLOCK_THRESHOLD:
         res_list = run_online_combined_inference_blocked_multi(
-            model, [theta0] * U, tables, cfg, block_size=_tc.THETA_BLOCK_SIZE, halo=_tc.THETA_HALO,
-            generator=gen)
+            model, list(theta0) if theta0.dim() == 2 else [theta0] * U, tables, cfg,
+            block_size=_tc.THETA_BLOCK_SIZE, halo=_tc.THETA_HALO, generator=gen)
         outs = [(r.regime_probs, r.theta_trace) for r in res_list]
     else:
         E = torch.zeros((U, max(t_limits), R), dtype=torch.float32, device=device)
@@ -514,4 +545,206 @@ def _single_group_on_counts_batched(
         probs, traces = res.regime_probs.cpu().numpy(), res.theta_trace.cpu().numpy()
         outs = [(probs[i, :T], traces[i, :T]) for i, T in enumerate(t_limits)]
     for (_pre, sg_dir, chrom, _g), (probs, trace), pos in zip(units, outs, positions):
-        _write_sg_outputs(sg_dir, chrom, pos, probs, trace, R)
+        _write_sg_outputs(sg_dir, chrom, pos, probs if estimate_regimes else None, trace, R)
+
+
+def read_sample_sheet(path):
+    """The sample sheet's (sample_id, bed_path) rows: a CSV with ``id`` and
+    ``file`` columns."""
+    import csv
+
+    with open(path, newline="") as f:
+        return [(row["id"].strip(), row["file"].strip()) for row in csv.DictReader(f)]
+
+
+def run_single_group(
+    *,
+    output_dir,
+    chroms,
+    device=None,
+    samples=None,
+    sample_sheet=None,
+    raw_samples=None,
+    cpg_file_path=None,
+    mu=(0.99, 0.01, 0.80, 0.20, 0.50, 0.50),
+    sigma=(0.05, 0.05, 0.20, 0.20, 0.20, 0.2886751),
+    u=3,
+    n_particles=250,
+    epsilon=0.01,
+    n_steps_without_parameter_update=200,
+    learning_rate_exponent=0.1,
+    learning_rate_factor=0.01,
+    resume=True,
+    rng_seed=0,
+    stub_run=False,
+    max_retries=5,
+    group="case",
+    bucket_dir=None,
+):
+    """The single-group pipeline, per (sample, chromosome):
+    SINGLE_GRP_PREPROCESS (the sample's BED preprocessed as the ``case``
+    group), ESTIMATE_PARAMETERS (theta learned from N(0, I), no regime
+    pass), ESTIMATE_REGIMES (the regime pass from the learned theta) and
+    GENERATE_SINGLE_GROUP_BED_FILES (BED9, bgzip and a tabix index), into
+
+      1_PREPROCESS/{sample}/{chrom}/ 2_ESTIMATE_PARAMETERS/{sample}/{chrom}/
+      3_ESTIMATE_REGIMES/{sample}/{chrom}/ 4_SINGLE_GROUP_OUTPUT/{sample}/
+
+    Inputs: ``sample_sheet`` (or ``raw_samples``, its rows) and
+    ``cpg_file_path``, or ``samples`` = [(sample_id, dir)] of directories
+    already preprocessed (count files of ``group``). With more than one
+    unit, each estimate first runs as one engine call over every pending
+    unit (``ESTIMATE_PARAMETERS[batched]``, ``ESTIMATE_REGIMES[batched]``);
+    a unit the batched pass did not finish runs alone. The engine stages run
+    on ``device``; markers make a re-run skip finished stages."""
+    if bucket_dir:
+        _not_ported("--bucket_dir (utils/staging.py)", "item 17")
+    out = Path(output_dir)
+    trace = StageTrace(out)
+    if sample_sheet is not None and raw_samples is None:
+        raw_samples = read_sample_sheet(sample_sheet)
+    if stub_run:
+        _stub_single_group(out, chroms, [s for s, _ in (raw_samples or samples or ())])
+        trace.flush()
+        return out
+    if device is None:
+        raise ValueError("run_single_group needs a device for its model stages")
+    device = torch.device(device)
+
+    units = []  # (sample_id, chrom, pre_dir, group)
+    if raw_samples is not None:
+        from hygeia_tpu_torch.pipeline.preprocess_bed import process_bed
+
+        for sample_id, bed_path in raw_samples:
+            for chrom in chroms:
+                pre_dir = out / "1_PREPROCESS" / sample_id / str(chrom)
+                if _stage(pre_dir, resume):
+                    def _pre_stage(attempt, sample_id=sample_id, bed_path=bed_path, chrom=chrom,
+                                   pre_dir=pre_dir):
+                        process_bed(cpg_file_path, pre_dir, chrom, case_data_paths=[bed_path],
+                                    case_id_names=[sample_id])
+                        _finish(pre_dir)
+
+                    if not _attempt(_pre_stage, trace=trace, stage="SINGLE_GRP_PREPROCESS",
+                                    chrom=f"{sample_id}:{chrom}", max_retries=max_retries):
+                        continue
+                else:
+                    trace.record("SINGLE_GRP_PREPROCESS", f"{sample_id}:{chrom}", 0.0, skipped=True)
+                units.append((sample_id, chrom, pre_dir, "case"))
+    else:
+        for sample_id, pre_dir in samples:
+            for chrom in chroms:
+                units.append((sample_id, chrom, Path(pre_dir), group))
+
+    sg_kw = dict(mu=mu, sigma=sigma, u=u, n_particles=n_particles, epsilon=epsilon,
+                 steps_per_update=n_steps_without_parameter_update,
+                 learning_rate_exponent=learning_rate_exponent,
+                 learning_rate_factor=learning_rate_factor, rng_seed=rng_seed, device=device)
+
+    def est_dir_of(sid, ch):
+        return out / "2_ESTIMATE_PARAMETERS" / sid / str(ch)
+
+    def reg_dir_of(sid, ch):
+        return out / "3_ESTIMATE_REGIMES" / sid / str(ch)
+
+    est_batched_done: set = set()  # in-process, so --no_resume does not rerun them
+    reg_batched_done: set = set()
+    if len(units) > 1:
+        pending1 = [(pre, est_dir_of(sid, ch), ch, grp) for sid, ch, pre, grp in units
+                    if _stage(est_dir_of(sid, ch), resume)]
+        if len(pending1) > 1:
+            def _est_batched(attempt):
+                _single_group_on_counts_batched(pending1, estimate_parameters=True,
+                                                estimate_regimes=False, **sg_kw)
+                for _pre, d, _c, _g in pending1:
+                    _finish(d)
+
+            if _attempt(_est_batched, trace=trace, stage="ESTIMATE_PARAMETERS[batched]",
+                        chrom=f"{len(pending1)} units", max_retries=1):
+                est_batched_done.update(d for _pre, d, _c, _g in pending1)
+        pending2, theta2 = [], []
+        for sid, ch, pre, grp in units:
+            theta_file = est_dir_of(sid, ch) / f"theta_{ch}.csv.gz"
+            if _stage(reg_dir_of(sid, ch), resume) and theta_file.exists():
+                pending2.append((pre, reg_dir_of(sid, ch), ch, grp))
+                theta2.append(hio.read_theta(theta_file))
+        if len(pending2) > 1:
+            def _reg_batched(attempt):
+                _single_group_on_counts_batched(pending2, estimate_parameters=False,
+                                                estimate_regimes=True, theta_fixed=theta2, **sg_kw)
+                for _pre, d, _c, _g in pending2:
+                    _finish(d)
+
+            if _attempt(_reg_batched, trace=trace, stage="ESTIMATE_REGIMES[batched]",
+                        chrom=f"{len(pending2)} units", max_retries=1):
+                reg_batched_done.update(d for _pre, d, _c, _g in pending2)
+
+    for sample_id, chrom, pre_dir, grp in units:
+        unit_tag = f"{sample_id}:{chrom}"
+        est_dir = est_dir_of(sample_id, chrom)
+        if est_dir not in est_batched_done and _stage(est_dir, resume):
+            def _est_stage(attempt):
+                _single_group_on_counts(pre_dir, est_dir, chrom, group=grp, estimate_regimes=False,
+                                        estimate_parameters=True, **sg_kw)
+                _finish(est_dir)
+
+            if not _attempt(_est_stage, trace=trace, stage="ESTIMATE_PARAMETERS", chrom=unit_tag,
+                            max_retries=max_retries):
+                continue
+        else:
+            trace.record("ESTIMATE_PARAMETERS", unit_tag, 0.0, skipped=True)
+
+        reg_dir = reg_dir_of(sample_id, chrom)
+        if reg_dir not in reg_batched_done and _stage(reg_dir, resume):
+            def _reg_stage(attempt):
+                theta = hio.read_theta(est_dir / f"theta_{chrom}.csv.gz")
+                _single_group_on_counts(pre_dir, reg_dir, chrom, group=grp, estimate_regimes=True,
+                                        estimate_parameters=False, theta_fixed=theta, **sg_kw)
+                _finish(reg_dir)
+
+            if not _attempt(_reg_stage, trace=trace, stage="ESTIMATE_REGIMES", chrom=unit_tag,
+                            max_retries=max_retries):
+                continue
+        else:
+            trace.record("ESTIMATE_REGIMES", unit_tag, 0.0, skipped=True)
+
+        bed_dir = out / "4_SINGLE_GROUP_OUTPUT" / sample_id
+        bed_marker = bed_dir / f".done_{chrom}"
+        if not (resume and bed_marker.exists()):
+            bed_dir.mkdir(parents=True, exist_ok=True)
+
+            def _bed_stage(attempt):
+                from hygeia_tpu_torch.pipeline.bed import make_bed
+
+                make_bed(chrom, reg_dir / f"regime_probabilities_{chrom}.csv.gz",
+                         bed_dir / f"{sample_id}_regimes_{chrom}.bed", compress=True)
+                bed_marker.write_text(json.dumps({"t": time.time()}))
+
+            _attempt(_bed_stage, trace=trace, stage="GENERATE_SINGLE_GROUP_BED_FILES", chrom=unit_tag,
+                     max_retries=max_retries)
+        else:
+            trace.record("GENERATE_SINGLE_GROUP_BED_FILES", unit_tag, 0.0, skipped=True)
+
+    trace.flush()
+    return out
+
+
+def _stub_single_group(out, chroms, sample_ids):
+    """The single-group output tree with empty files (DAG wiring test)."""
+    for sample_id in sample_ids:
+        for chrom in chroms:
+            for stage, names in (
+                (f"1_PREPROCESS/{sample_id}/{chrom}",
+                 (f"positions_{chrom}.txt.gz", f"n_total_reads_case_{chrom}.txt.gz",
+                  f"n_methylated_reads_case_{chrom}.txt.gz", f"cpg_sites_merged_{chrom}.txt.gz")),
+                (f"2_ESTIMATE_PARAMETERS/{sample_id}/{chrom}",
+                 (f"theta_trace_{chrom}.csv.gz", f"p_{chrom}.csv.gz", f"kappa_{chrom}.csv.gz",
+                  f"omega_{chrom}.csv.gz", f"theta_{chrom}.csv.gz")),
+                (f"3_ESTIMATE_REGIMES/{sample_id}/{chrom}", (f"regime_probabilities_{chrom}.csv.gz",)),
+                (f"4_SINGLE_GROUP_OUTPUT/{sample_id}",
+                 (f"{sample_id}_regimes_{chrom}.bed.gz", f"{sample_id}_regimes_{chrom}.bed.gz.tbi")),
+            ):
+                d = out / stage
+                d.mkdir(parents=True, exist_ok=True)
+                for name in names:
+                    (d / name).touch()

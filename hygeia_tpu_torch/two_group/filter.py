@@ -90,11 +90,14 @@ def _one_step(
     M,
     u_sys,
     u_mult,
+    return_parents=False,
 ):
     """One filter step for U units: prev_lw (U, N) renormalised weights,
     prev_particles (U, 5, N) int32 stacked fields (m, d_c, r_c, d_k, r_k),
     the site's emission rows (R,) or (U, R), and the step's uniforms u_sys (U,),
-    u_mult (U, M). Returns (new_lw (U, N), new_particles (U, 5, N)).
+    u_mult (U, M). Returns (new_lw (U, N), new_particles (U, 5, N)), and
+    with return_parents=True also the (U, M) int64 ancestor indices (the
+    marginal filter keys its backward kernels on them).
 
     Dead ancestors (weight -inf) may be picked as top-M padding parents;
     their children inherit -inf weights.
@@ -133,6 +136,8 @@ def _one_step(
         w_no_resample,
     )
     # Flatten (I, M) -> N with n = i*M + m.
+    if return_parents:
+        return lw.reshape(U, -1), children.reshape(U, 5, -1), p
     return lw.reshape(U, -1), children.reshape(U, 5, -1)
 
 

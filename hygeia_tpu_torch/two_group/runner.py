@@ -181,6 +181,35 @@ def _write_seed_files(path, flags, s, log_norm, times, times_backward):
         print(times_backward, file=f)
 
 
+def _run_marginal_m(path, seeds, seeds_per_call, params, E_c, E_k, M, N, ret, epsilon, window,
+                    all_log_norm, times, device):
+    """The marginal filter for one particle budget M, chunk by chunk of
+    seeds: one site loop a chunk; writes each seed's split and regime
+    probabilities (the npz names and shapes of the backward-simulation
+    path) and records its logZ and wall share."""
+    from hygeia_tpu_torch.two_group.marginal import run_marginal_filter
+
+    for c0 in range(0, len(seeds), seeds_per_call):
+        chunk = seeds[c0 : c0 + seeds_per_call]
+        _sync(device)
+        t0 = time.perf_counter()
+        res = run_marginal_filter(params, E_c, E_k, M, n_units=len(chunk),
+                                  generator=_generator(device, chunk, 0), epsilon=epsilon,
+                                  smoothing_window=window)
+        fn = res.functionals.cpu().numpy()
+        log_z, spill = res.log_normalizing_constant.cpu().numpy(), res.spill_count.cpu().numpy()
+        degen = res.degenerate_steps.cpu().numpy()
+        elapsed = time.perf_counter() - t0
+        for i, s in enumerate(chunk):
+            _report_degenerate(f"seed {s}", degen[i])
+            times[s][N] = elapsed / len(chunk)
+            all_log_norm[s][N] = float(log_z[i])
+            hio.savez_fast(os.path.join(path, f"optimal_split_probs_{N}_{s}"), fn[i, ret, 0])
+            hio.savez_fast(os.path.join(path, f"optimal_regime_probs_{N}_{s}"), fn[i, ret, 1:])
+            print(f"marginal filter seed {s}: spill_count={int(spill[i])}"
+                  + (" (pending times force-finalised: smoothing window spill)" if spill[i] else ""))
+
+
 def _report_degenerate(label, d):
     if d:
         # Nonzero means the whole particle set collapsed at some sites.
@@ -216,6 +245,8 @@ def infer_segment(
     max_seeds_per_call=None,
     streaming_blocks=None,
     timings=None,
+    marginal_epsilon=0.01,
+    marginal_window=64,
 ):
     """Run inference for one (chrom, batch, seed or seeds) work unit on
     ``device`` and write the reference-format outputs under
@@ -234,11 +265,16 @@ def infer_segment(
     a chunk on top of the memory budget's cap: the pipeline lowers it on
     each retry of a failed unit.
 
+    marginal=True runs the adaptive-lag marginal filter
+    (two_group/marginal.py) in place of the filter and backward
+    simulation, and takes precedence over streaming_blocks: it writes the
+    split and regime probabilities (optimal_split_probs_{N}_{s},
+    optimal_regime_probs_{N}_{s}), no trajectories, with marginal_epsilon
+    and marginal_window (pending times a unit holds).
+
     multinomial is recorded in the flags files only: as in hygeia_tpu, the
     INFER filter always takes the optimal resampler (whose fallback is
     multinomial)."""
-    if marginal:
-        _not_ported("--marginal", "11 (marginal path)")
     if trace_dir:
         _not_ported("--trace_dir", "16 (tracing)")
     device = torch.device(device)
@@ -294,13 +330,19 @@ def infer_segment(
 
     for M in num_resampled_particles:
         N = M * (2 * R + R * R)
-        if streaming_blocks:
+        if marginal:
+            per_seed = N * N * 8  # the JAX runner's rule for the marginal filter
+        elif streaming_blocks:
             per_seed = bytes_per_streamed_unit(T, int(streaming_blocks), N, B)
         else:
             per_seed = bytes_per_seed(T, N, B)
         seeds_per_call = max(1, int(budget // per_seed))
         if max_seeds_per_call is not None:
             seeds_per_call = min(seeds_per_call, max(1, int(max_seeds_per_call)))
+        if marginal:
+            _run_marginal_m(path, seeds, seeds_per_call, params, E_c, E_k, M, N, ret, marginal_epsilon,
+                            marginal_window, all_log_norm, times, device)
+            continue
 
         outs = {}
         for c0 in range(0, len(seeds), seeds_per_call):

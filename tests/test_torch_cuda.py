@@ -8,8 +8,15 @@ the GPU (no JAX there, so without the repo's conftest):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: parents, top-M indices and fallback flags equal; log_c and the
-new weights rtol 1e-5 (f32 sums taken in another order); hazard tables
-bit-identical (they are built from exactly rounded operations only).
+new weights rtol 1e-5 (f32 sums taken in another order); the hazard,
+emission and robust tables bit-identical (they are built from exactly
+rounded operations only). The single-group pipeline on the card against
+its CPU run (other generator streams): regime probabilities within 0.05
+mean absolute, modes equal on 90% of the sites both call confident. The
+marginal filter on the card against the CPU with the same uniforms: the
+functionals within 0.02, logZ within rtol 1e-4 (the kernel's log_c is
+rtol 1e-5 of the plain version's, and the psi product sums in another
+order).
 """
 
 import numpy as np
@@ -312,6 +319,10 @@ def test_robust_table_on_the_card_matches_the_cpu(device):
                                       torch.tensor([0.05, 0.05, 0.1, 0.1, 0.1, 0.2886751], dtype=dtype, device=dev))
         tables.append(robust_emission_log_prob_table(y, n, a, b, dtype=dtype).cpu().double())
     torch.testing.assert_close(tables[1], tables[0], rtol=1e-5, atol=0)
+    a, b = mu_sigma_to_alpha_beta(torch.tensor([0.95, 0.05, 0.8, 0.2, 0.5, 0.5], dtype=torch.float32),
+                                  torch.tensor([0.05, 0.05, 0.1, 0.1, 0.1, 0.2886751], dtype=torch.float32))
+    cpu32 = robust_emission_log_prob_table(y, n, a, b)
+    assert torch.equal(cpu32.double(), tables[1])
 
 
 def test_blocked_theta_on_the_card_launches_once_a_site_for_all_blocks(device):
@@ -336,3 +347,103 @@ def test_blocked_theta_on_the_card_launches_once_a_site_for_all_blocks(device):
                                                 generator=torch.Generator(device=device).manual_seed(0))
     assert cr.KERNEL.launches - before == (200 - 1) + (256 + 64 - 1)
     assert np.isfinite(res.theta_trace).all() and res.regime_valid.all()
+
+
+@pytest.mark.parametrize("S", [2, 8])
+def test_f32_emission_table_and_rho_bit_identical_to_the_cpu(device, S):
+    """The f32 BetaBinomial table at the infer and the single-group defaults
+    (shapes below 0.5: the lgamma reflection through the replayed sin) and
+    the two-group rho for six omega: the card's bits are the CPU's."""
+    from hygeia_tpu_torch.ops import xla_f32
+    from hygeia_tpu_torch.ops.distributions import mu_sigma_to_alpha_beta
+    from hygeia_tpu_torch.ops.emissions import emission_log_prob_table
+    from hygeia_tpu_torch.ops.hazard import rho_two_group
+
+    rng = np.random.default_rng(S)
+    n = rng.poisson(20, size=(3000, S)).astype(np.float32)
+    n[::13] = 0
+    y = np.minimum(rng.poisson(10, size=n.shape), n).astype(np.float32)
+    for mu, sigma in (([0.95, 0.05, 0.80, 0.20, 0.50, 0.50], [0.05, 0.05, 0.1, 0.1, 0.1, 0.2886751]),
+                      ([0.99, 0.01, 0.80, 0.20, 0.50, 0.50], [0.05, 0.05, 0.20, 0.20, 0.20, 0.2886751])):
+        tabs = []
+        for dev in (torch.device("cpu"), device):
+            a, b = mu_sigma_to_alpha_beta(torch.tensor(mu, dtype=torch.float32, device=dev),
+                                          torch.tensor(sigma, dtype=torch.float32, device=dev))
+            tabs.append(emission_log_prob_table(y, n, a, b).cpu())
+        assert torch.equal(tabs[0], tabs[1])
+    omega = torch.tensor([0.8, 1 / (1 + np.exp(-2.0)), 1 / (1 + np.exp(2.0)), 0.995, 0.975, 0.9],
+                         dtype=torch.float32)
+    kappa = torch.full((6,), 2.0)
+    assert torch.equal(rho_two_group(kappa, omega, 3, 4096),
+                       rho_two_group(kappa.to(device), omega.to(device), 3, 4096).cpu())
+    x = torch.from_numpy(rng.uniform(0, np.pi / 2, 100000).astype(np.float32))
+    assert torch.equal(xla_f32.sin(x), xla_f32.sin(x.to(device)).cpu())
+
+
+def test_single_group_pipeline_on_the_card_matches_the_cpu(device, tmp_path):
+    """run_single_group over one preprocessed chromosome of two samples
+    (300 sites, N=250): both batched passes on the card, 2 (T - 1)
+    launches; the regime probabilities within the module's bounds of the
+    CPU run's."""
+    from hygeia_tpu_torch.pipeline.orchestrator import run_single_group
+    from hygeia_tpu_torch.utils import io as hio
+
+    T = 300
+    rng = np.random.default_rng(8)
+    level = np.repeat(rng.choice([0.97, 0.03, 0.5], size=T // 30), 30)
+    samples = []
+    for sid in ("a", "b"):
+        pre = tmp_path / "pre" / sid
+        n = rng.poisson(25, size=(T, 2))
+        hio.write_count_matrix(pre / "positions_c.txt.gz", np.arange(1, T + 1) * 13)
+        hio.write_count_matrix(pre / "n_total_reads_case_c.txt.gz", n)
+        hio.write_count_matrix(pre / "n_methylated_reads_case_c.txt.gz", rng.binomial(n, level[:, None]))
+        samples.append((sid, pre))
+    probs = []
+    for i, dev in enumerate((torch.device("cpu"), device)):
+        before = cr.KERNEL.launches
+        out = run_single_group(output_dir=tmp_path / str(i), chroms=["c"], samples=samples, device=dev)
+        if dev.type == "cuda":
+            assert cr.KERNEL.launches - before == 2 * (T - 1)
+        probs.append([hio.read_headed_table(out / "3_ESTIMATE_REGIMES" / sid / "c" /
+                                            "regime_probabilities_c.csv.gz")[1][:, 1:] for sid in ("a", "b")])
+    for p_cpu, p_card in zip(*probs):
+        assert float(np.abs(p_cpu - p_card).mean()) < 0.05
+        sure = (p_cpu.max(1) > 0.9) & (p_card.max(1) > 0.9)
+        assert float((p_cpu.argmax(1) == p_card.argmax(1))[sure].mean()) >= 0.9
+
+
+def test_marginal_filter_on_the_card_matches_the_cpu(device):
+    """run_marginal_filter at M=50 (N=2400), f32, two units, the same
+    injected uniforms on both devices: T - 1 launches on the card, and the
+    functionals and logZ within the module's bounds of the CPU's."""
+    from hygeia_tpu_torch.ops.emissions import emission_log_prob_table
+    from hygeia_tpu_torch.two_group.marginal import run_marginal_filter
+    from hygeia_tpu_torch.two_group.model import make_params
+
+    R, T, M, U = 6, 200, 50, 2
+    rng = np.random.default_rng(9)
+    n = rng.poisson(20, size=(T, 2))
+    y_c, y_k = rng.binomial(n, 0.7), rng.binomial(n, np.where(np.arange(T) % 100 < 40, 0.1, 0.7)[:, None])
+    g = torch.Generator().manual_seed(5)
+    u_sys, u_mult = torch.rand((U, T - 1), generator=g), torch.rand((U, T - 1, M), generator=g)
+    out = []
+    for dev in (torch.device("cpu"), device):
+        params = make_params(
+            mu=[0.95, 0.05, 0.80, 0.20, 0.50, 0.50], sigma=[0.05, 0.05, 0.1, 0.1, 0.1, 0.2886751],
+            p_softmax_control=np.zeros((R, R)), omega_logit_control=np.full(R, 4.0), omega_case=0.8,
+            kappa_control=np.full(R, 2.0), kappa_case=np.full(R, 2.0), merge_log_prob=np.log(0.1),
+            split_prob=0.01, minimum_duration=3, d_max=T + 1, device=dev,
+        )
+        E_c = emission_log_prob_table(y_c, n, params.alpha, params.beta)
+        E_k = emission_log_prob_table(y_k, n, params.alpha, params.beta)
+        before = cr.KERNEL.launches
+        res = run_marginal_filter(params, E_c, E_k, M, n_units=U, uniforms=(u_sys.to(dev), u_mult.to(dev)),
+                                  phantom_regime=0)
+        out.append(res)
+        if dev.type == "cuda":
+            assert cr.KERNEL.launches - before == T - 1
+    a, b = out
+    assert bool(b.valid.all()) and int(b.degenerate_steps.sum()) == 0
+    torch.testing.assert_close(b.functionals.cpu(), a.functionals, atol=0.02, rtol=0)
+    torch.testing.assert_close(b.log_normalizing_constant.cpu(), a.log_normalizing_constant, rtol=1e-4, atol=0)

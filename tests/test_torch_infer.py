@@ -210,9 +210,9 @@ def test_cli_device_cuda_raises_without_cuda(runs, tmp_path):
     assert not any(tmp_path.iterdir())  # raised before writing anything
 
 
-# --streaming_blocks and --robust are ported; --marginal and --trace_dir,
-# with them or alone, still raise.
-@pytest.mark.parametrize("flag", [["--robust", "--marginal"], ["--marginal"],
+# --streaming_blocks, --robust and --marginal are ported; --trace_dir, with
+# them or alone, still raises.
+@pytest.mark.parametrize("flag", [["--robust", "--marginal", "--trace_dir", "x"], ["--marginal", "--trace_dir", "x"],
                                   ["--streaming_blocks", "64", "--robust", "--trace_dir", "x"],
                                   ["--trace_dir", "x"]])
 def test_unported_options_raise(runs, tmp_path, flag):

@@ -4,10 +4,10 @@ package's on the same inputs, made with numpy from a seed.
 Tolerances: f64 log-densities rtol 1e-12 plus atol 1e-12 (XLA's and libm's
 lgamma differ in the last bits, and a log-pmf near 0 is a sum of nine
 lgamma terms of size ~100 that cancel); make_params rtol 1e-10 (the hazard
-table divides two such values through exp); the f32 hazard table rtol 1e-3
-where both are finite (f32 lgamma rounding amplified by the
-survival-function ratio). XLA's CPU float32 exp, log, log1p, lgamma and
-digamma (ops/xla_f32.py): bit for bit.
+table divides two such values through exp). In float32 bit for bit: XLA's
+CPU exp, log, log1p, lgamma, digamma and sin and its sum order
+(ops/xla_f32.py), the BetaBinomial and robust emission tables and the
+two-group hazard table rho (JAX's eager float32 tables).
 """
 
 import numpy as np
@@ -20,12 +20,14 @@ from jax.scipy.special import digamma as j_digamma, gammaln as j_gammaln
 from hygeia_tpu.ops import distributions as jd
 from hygeia_tpu.ops import hazard as jh
 from hygeia_tpu.ops.emissions import emission_log_prob_table as j_emission
+from hygeia_tpu.ops.emissions import robust_emission_log_prob_table as j_robust
 from hygeia_tpu.ops.hazard import rho_two_group as j_rho
 from hygeia_tpu.two_group.model import make_params as j_make_params
 from hygeia_tpu_torch.ops import distributions as td
 from hygeia_tpu_torch.ops import hazard as th
 from hygeia_tpu_torch.ops import xla_f32
 from hygeia_tpu_torch.ops.emissions import emission_log_prob_table as t_emission
+from hygeia_tpu_torch.ops.emissions import robust_emission_log_prob_table as t_robust
 from hygeia_tpu_torch.ops.hazard import gather_rho, rho_two_group as t_rho
 from hygeia_tpu_torch.two_group.model import make_params as t_make_params
 
@@ -122,21 +124,86 @@ def _first_guard_column(rho):
     return np.where(hit.any(axis=1), hit.argmax(axis=1), -1)
 
 
-def test_f32_hazard_table_keeps_jax_guard_onset():
+@pytest.mark.parametrize("kappa,u", [(2.0, 3), (2.0, 2), (1.3, 5), (3.7, 1)])
+def test_f32_hazard_table_keeps_jax_guard_onset(kappa, u):
     """At f32 the survival function underflows in the deep tail and the 0.1
-    guard takes over; the port's table switches at the JAX table's column
-    (+-1) for omega in {0.8, sigmoid(+2), sigmoid(-2)}, d_max 4096."""
-    omega = np.array([0.8, 1 / (1 + np.exp(-2.0)), 1 / (1 + np.exp(2.0))], np.float32)
-    kappa = np.full(3, 2.0, np.float32)
-    want = np.asarray(j_rho(jnp.asarray(kappa), jnp.asarray(omega), 3, 4096))
-    got = t_rho(torch.from_numpy(kappa), torch.from_numpy(omega), 3, 4096).numpy()
+    guard takes over; the port's table is JAX's eager f32 table bit for bit
+    (XLA's Lentz loop, its FMAs and flush-to-zero replayed), so the guard
+    switches at the JAX table's column, for the six omega of the two-group
+    and single-group defaults, d_max 4096."""
+    omega = np.array([0.8, 1 / (1 + np.exp(-2.0)), 1 / (1 + np.exp(2.0)), 0.995, 0.975, 0.9], np.float32)
+    kappa = np.full(6, kappa, np.float32)
+    want = np.asarray(j_rho(jnp.asarray(kappa), jnp.asarray(omega), u, 4096))
+    got = t_rho(torch.from_numpy(kappa), torch.from_numpy(omega), u, 4096).numpy()
     assert got.dtype == np.float32 and got.shape == want.shape
     gw, gg = _first_guard_column(want), _first_guard_column(got)
-    assert np.all(gw > 0), gw  # the f32 guard fires in every row
-    np.testing.assert_allclose(gg, gw, atol=1)
-    both = (want != np.float32(0.1)) & (got != np.float32(0.1)) & (want > 0)
-    np.testing.assert_allclose(got[both], want[both], rtol=1e-3)
-    np.testing.assert_array_equal(got == 0, want == 0)  # the d < u zeros
+    assert np.all(gw[:3] > 0), gw  # the f32 guard fires in the two-group rows
+    np.testing.assert_array_equal(gg, gw)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+_DEFAULTS = {
+    "infer": ([0.95, 0.05, 0.80, 0.20, 0.50, 0.50], [0.05, 0.05, 0.1, 0.1, 0.1, 0.2886751]),
+    "single_group": ([0.99, 0.01, 0.80, 0.20, 0.50, 0.50], [0.05, 0.05, 0.20, 0.20, 0.20, 0.2886751]),
+}
+
+
+def _f32_shapes(defaults):
+    mu, sigma = (jnp.asarray(np.asarray(v, np.float32)) for v in _DEFAULTS[defaults])
+    return tuple(np.asarray(v) for v in jd.mu_sigma_to_alpha_beta(mu, sigma))
+
+
+def _counts(T, S, seed):
+    rng = np.random.default_rng(seed)
+    n = rng.poisson(20, size=(T, S)).astype(np.float32)
+    n[::13] = 0
+    return np.minimum(rng.poisson(10, size=(T, S)), n).astype(np.float32), n
+
+
+@pytest.mark.parametrize("S", [2, 8, 37])
+@pytest.mark.parametrize("defaults", ["infer", "single_group"])
+def test_f32_emission_table_is_jax_bit_for_bit(defaults, S):
+    """The f32 BetaBinomial table equals JAX's eager f32 table bit for bit
+    at the infer and the single-group defaults (shapes down to 0.0296, the
+    lgamma reflection branch), over 2, 8 and 37 samples (the sum over
+    samples in XLA's order, windows of 32 past 32)."""
+    alpha, beta = _f32_shapes(defaults)
+    y, n = _counts(3000, S, S)
+    want = np.asarray(j_emission(y, n, jnp.asarray(alpha), jnp.asarray(beta), dtype=jnp.float32))
+    got = t_emission(y, n, torch.from_numpy(alpha), torch.from_numpy(beta)).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("defaults", ["infer", "single_group"])
+def test_f32_robust_table_is_jax_bit_for_bit(defaults):
+    """The f32 robust table equals JAX's eager f32 table bit for bit, and
+    is the same at any chunk size."""
+    alpha, beta = _f32_shapes(defaults)
+    y, n = _counts(150, 3, 5)
+    want = np.asarray(j_robust(y, n, jnp.asarray(alpha), jnp.asarray(beta), 0.05, dtype=jnp.float32))
+    got = t_robust(y, n, torch.from_numpy(alpha), torch.from_numpy(beta), 0.05).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    chunked = t_robust(y, n, torch.from_numpy(alpha), torch.from_numpy(beta), 0.05, chunk_elements=4000)
+    assert torch.equal(chunked, torch.from_numpy(got))
+
+
+def test_xla_f32_sin_and_reduce_sum_are_jax_cpu_bit_for_bit():
+    """sin (glibc's sinf, which XLA's CPU sine calls) on [0, pi/2], and
+    reduce_sum against jnp.sum along the first, middle and last axis at
+    lengths around XLA's 32-element windows."""
+    rng = np.random.default_rng(3)
+    x = np.concatenate([rng.uniform(0, np.pi / 2, 50000), np.linspace(0, np.pi / 2, 20001),
+                        np.float32(2.0) ** -np.arange(1, 40)]).astype(np.float32)
+    want = np.asarray(jax.jit(jnp.sin)(jnp.asarray(x)))
+    np.testing.assert_array_equal(xla_f32.sin(torch.from_numpy(x)).numpy().view(np.int32), want.view(np.int32))
+    for n in (1, 2, 31, 32, 33, 37, 64, 65, 100, 1100):
+        a = rng.normal(size=(3, n, 4)).astype(np.float32)
+        for axis in (0, 1, 2):
+            b = np.moveaxis(a, 1, axis)
+            want = np.asarray(jax.jit(lambda v: jnp.sum(v, axis=axis))(jnp.asarray(b)))
+            got = xla_f32.reduce_sum(torch.from_numpy(np.ascontiguousarray(b)), axis).numpy()
+            np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32), err_msg=f"n={n} axis={axis}")
 
 
 @pytest.mark.parametrize("dead_regime", [-1, 0])

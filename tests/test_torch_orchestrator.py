@@ -153,11 +153,13 @@ def test_batched_theta_stage_equals_per_chromosome_runs(beds, tmp_path):
             assert (tio._read_text(tmp_path / "s" / c / name) == tio._read_text(tmp_path / "b" / c / name)), name
 
 
+# The single-group run and preprocess --format gembs are ported; --mesh and
+# --bucket_dir still raise, with and without --two_group.
 @pytest.mark.parametrize("argv", [
     ["run", "--two_group", "--mesh", "2x1"],
     ["run", "--two_group", "--bucket_dir", "x"],
-    ["run"],
-    ["preprocess", "--cpg_file_path", "x", "--format", "gembs"],
+    ["run", "--sample_sheet", "x.csv", "--bucket_dir", "x"],
+    ["run", "--sample_sheet", "x.csv", "--stub_run", "--bucket_dir", "x"],
 ])
 def test_unported_options_raise(tmp_path, argv):
     extra = ["--output_dir", str(tmp_path / "o"), "--chroms", "3", "--device", "cpu"] if argv[0] == "run" else []
