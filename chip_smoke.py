@@ -6,7 +6,8 @@
     python3 chip_smoke.py --chrom_sites 3300 --sites 3000 --buffer 300 --stream_block 512 \
         --chrom2_sites 3000 --robust_sites 600 --robust_buffer 60 --theta_block 1024 \
         --theta_halo 128 --theta_warmup 1024 --pipeline_sites 2600 --sg_pipeline_sites 1500 \
-        --marginal_sites 1500 --marginal_buffer 150   # a quick look
+        --marginal_sites 1500 --marginal_buffer 150 --simulate_data_sites 1000 \
+        --trace_sites 100 --trace_buffer 10   # a quick look
 
 Phases, each of which raises (exit code non-zero) when it fails:
 
@@ -40,6 +41,10 @@ Phases, each of which raises (exit code non-zero) when it fails:
    defaults, 2 and 8 samples) and the two-group hazard table rho (six
    omega, kappa 2, u 3, d_max 4096), bit-identical on the card and the CPU
    (tests/test_torch_ops.py holds the CPU tables to JAX's bit for bit);
+4b. the off-path numerics on the card against the CPU: every function of
+   the discrete-normal family at float64 within rtol 1e-12 over integers
+   from tail to tail, and both conditional resamplers equal given the same
+   uniforms (N = 40 at U = 256, N = 2,400 and M = 50 at U = 64);
 5. a seeded reference-format chromosome of 40,000 CpGs is written to a
    temporary directory: 2 control + 2 case samples for ``infer`` and the
    two control samples as headed CSVs for the single-group engine, which
@@ -97,7 +102,11 @@ Phases, each of which raises (exit code non-zero) when it fails:
    trajectories, (T - 1) + sum over batches of (window - 1) launches (one
    launch a site serves both seeds), weighted_dmp_0.05.csv non-empty with
    at least half its positions in planted windows (recall printed); a
-   second invocation runs no stage again;
+   second invocation runs no stage again; the run mirrors its tree to
+   ``--bucket_dir file://<root>/bucket``, and after the output tree is
+   deleted a third invocation restores it from the bucket (a
+   BUCKET_RESTORE row), skips every stage, launches nothing and leaves the
+   DMP files byte-equal to the first run's;
 13. ``hygeia_tpu_torch.cli run`` (the single-group pipeline) from a sample
    sheet of 2 BED samples of a fourth chromosome "4" of 5,000 CpGs with
    planted high and low stretches, at the run verb's defaults (R=6,
@@ -122,7 +131,29 @@ Phases, each of which raises (exit code non-zero) when it fails:
    inside the planted DMRs than outside, the split and the regime
    probabilities within 0.1 and 0.07 (mean absolute) of phase 7's
    backward-simulation ones on the same sites, peak memory beside phase
-   7's.
+   7's;
+15. ``simulate_two_groups --run_inference`` through the CLI at the verb's
+   defaults (T = 2,000, R = 6, M = 50 so N = 2,400, B = 25, seed 0): T - 1
+   launches, logZ finite, no degenerate step, the JAX verb's 12 files and
+   their shapes, control-regime recovery above 0.95 (the port's CPU runs
+   read 0.981-0.994 over seeds 0-5); the simulation, filter and backward
+   seconds apart;
+16. ``simulate_data`` through the CLI (5,000 CpGs, 2 samples, the verb's
+   defaults; ``--simulate_data_sites``), then
+   ``estimate_parameters_and_regimes --estimate_regime_probabilities`` on
+   its files at the simulation's theta: T - 1 launches, regime recovery
+   above 0.95 (the CPU's 0.990-0.999 over seeds 0-2); then
+   ``approximate_log_normalizing_constant`` with 8 replicates on the same
+   counts: T - 1 launches serve all 8, every value finite, their spread
+   printed;
+17. ``infer --trace_dir`` through the CLI on batch 0 of phase 5's
+   chromosome (segment 300 + halo 30, M = 50, one seed; ``--trace_sites``,
+   ``--trace_buffer``), then the same call without it: npz arrays and logZ
+   equal bit for bit; one trace file, its size; from the trace the CUDA
+   kernels a site of the filter and of the backward pass (the
+   ``infer.filter`` and ``infer.backward`` ranges), K1's kernels equal to
+   the wrapper's count, the device's busy share of the traced window and
+   its busy time against the untraced run's filter and backward seconds.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc;
@@ -1043,9 +1074,10 @@ def pipeline_phase(device, root, n_sites, batch_size=6000, buffer_size=600, seed
 
     cpg, controls, cases, dmr, pos0 = make_bed_dataset(os.path.join(root, "bed"), n_sites, chrom="3")
     out = os.path.join(root, "pipeline")
+    bucket = os.path.join(root, "bucket")
     argv = ["run", "--two_group", "--output_dir", out, "--chroms", "3", "--cpg_file_path", cpg,
             "--batch_size", str(batch_size), "--buffer_size", str(buffer_size),
-            "--num_of_inference_seeds", str(seeds), "--device", str(device)]
+            "--num_of_inference_seeds", str(seeds), "--bucket_dir", f"file://{bucket}", "--device", str(device)]
     for flag, paths, prefix in (("control", controls, "c"), ("case", cases, "k")):
         for i, p in enumerate(paths):
             argv += [f"--{flag}_data_path", p, f"--{flag}_id_names", f"{prefix}{i}"]
@@ -1104,17 +1136,44 @@ def pipeline_phase(device, root, n_sites, batch_size=6000, buffer_size=600, seed
     with contextlib.redirect_stdout(io.StringIO()):
         cli.main(argv)
     wall2 = time.perf_counter() - t1
+    # Its restore fetches the files of directories without a marker (the
+    # INFER outputs; their markers are in the unit_* directories), as the
+    # JAX package's mirror does: a BUCKET_RESTORE row, then only skips.
     rows2 = [r.split("\t") for r in open(os.path.join(out, "trace.tsv")).read().splitlines()[1:]]
-    check(KERNEL.launches == 0 and all(r[3] == "True" for r in rows2),
+    check(KERNEL.launches == 0 and all(r[3] == "True" for r in rows2 if r[0] != "BUCKET_RESTORE"),
           f"pipeline: the resumed run ran stages again ({KERNEL.launches} launches, {rows2})")
     check(wall2 < 0.1 * wall, f"pipeline: the resumed run took {wall2:.2f} s of the first's {wall:.2f} s")
+
+    # A fresh machine: the output tree deleted, the run restored from the
+    # bucket, every stage skipped, the DMP files the first run's.
+    dmp_dir = os.path.join(out, "6_GET_DMPS", "3")
+    dmps = {}
+    for name in os.listdir(dmp_dir):
+        with open(os.path.join(dmp_dir, name), "rb") as f:
+            dmps[name] = f.read()
+    shutil.rmtree(out)
+    KERNEL.launches = 0
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(argv)
+    wall3 = time.perf_counter() - t1
+    bucket_launches = KERNEL.launches
+    rows3 = [r.split("\t") for r in open(os.path.join(out, "trace.tsv")).read().splitlines()[1:]]
+    check(bucket_launches == 0 and rows3[0][0] == "BUCKET_RESTORE" and all(r[3] == "True" for r in rows3[1:]),
+          f"pipeline: the run restored from the bucket ran stages again ({bucket_launches} launches, {rows3})")
+    for name, data in dmps.items():
+        with open(os.path.join(dmp_dir, name), "rb") as f:
+            check(f.read() == data, f"pipeline: {name} restored from the bucket differs from the first run's")
     stats = {"sites": n_sites, "batches": n_batches, "windows": windows, "seeds": seeds, "wall_s": wall,
              "stage_s": stage_s, "dmps_weighted_0.05": int(called.size), "precision": precision, "recall": recall,
-             "resumed_wall_s": wall2, "launches_per_site": launches / (n_sites - 1 + sum(w - 1 for w in windows))}
+             "resumed_wall_s": wall2, "bucket_restore": rows3[0][5], "bucket_resumed_wall_s": wall3,
+             "launches_per_site": launches / (n_sites - 1 + sum(w - 1 for w in windows))}
     print(f"pipeline: {n_sites} CpGs from BED files, {n_batches} batches x {seeds} seeds: launches={launches}; "
           f"{wall:.2f} s, by stage {stage_s}; weighted_dmp_0.05: {called.size} positions, {precision:.3f} in planted "
-          f"windows, recall {recall:.3f}; resumed run {wall2:.2f} s, no stage again")
-    return stats, launches
+          f"windows, recall {recall:.3f}; resumed run {wall2:.2f} s, no stage again; after deleting the tree, "
+          f"restored from the bucket ({rows3[0][5]}) in {wall3:.2f} s, no stage again, launches={bucket_launches}, "
+          f"DMP files equal")
+    return stats, launches, bucket_launches
 
 
 def sg_pipeline_phase(device, root, n_sites):
@@ -1366,6 +1425,314 @@ def marginal_phase(device, root, data_dir, sg_dir, dmr, segment_size, buffer_siz
     return stats, launches
 
 
+# ----------------------------------------------------- off-path numerics ----
+
+def offpath_phase(device, seed=0):
+    """The off-path numerics on the card against the CPU: every function of
+    the discrete-normal family at float64 within rtol 1e-12 over integers
+    from tail to tail (and the out-of-support guards); both conditional
+    resamplers given the same uniforms, equal, at N = 40 (U = 256) and at
+    the filter's N = 2400, M = 50 (U = 64). Returns its stats."""
+    import numpy as np
+    import torch
+    from hygeia_tpu_torch.ops import discrete_normal as dn
+    from hygeia_tpu_torch.ops import resampling as rs
+
+    t0 = time.perf_counter()
+    worst = 0.0
+    n_funcs = 0
+    for mean, sd in ((2.3, 1.7), (0.0, 1.0), (-3.0, 0.4), (10.0, 3.0)):
+        xs = torch.arange(-60, 70, dtype=torch.float64)
+        xs = xs[torch.abs((xs - mean) / sd) < 36]
+        for name in sorted(n for n in dir(dn) if n.startswith(("log_", "grad_")) and n != "log_ndtr"):
+            f = getattr(dn, name)
+            if name == "log_diff_cdfs":
+                args = (xs, xs - 3)
+            elif "right" in name:
+                args = (xs, 6)
+            elif "left" in name:
+                args = (xs, 1)
+            elif "truncated" in name:
+                args = (xs, 0, 8)
+            else:
+                args = (xs,)
+            cpu = f(*args, mean, sd).numpy()
+            card = f(*(a.to(device) if isinstance(a, torch.Tensor) else a for a in args), mean, sd).cpu().numpy()
+            same = (card == cpu) | (np.isnan(card) & np.isnan(cpu))
+            with np.errstate(invalid="ignore"):
+                rel = np.abs(card - cpu)[~same] / np.abs(cpu[~same])
+            r = float(rel.max()) if rel.size else 0.0
+            check(r <= 1e-12, f"offpath: {name} on the card {r:.3g} (relative) from the CPU")
+            worst = max(worst, r)
+            n_funcs += 1
+    rng = np.random.default_rng(seed)
+    for U, n, m in ((256, 40, 40), (64, 2400, 50)):
+        w = rng.dirichlet(np.full(n, 0.4), size=U)
+        lw = torch.log(torch.from_numpy(w))
+        a = torch.from_numpy(np.array([rng.choice(n, p=row) for row in w]))
+        u, us = torch.from_numpy(rng.uniform(size=U)), torch.from_numpy(rng.uniform(size=U))
+        um = torch.from_numpy(rng.uniform(size=(U, m)).astype(np.float32))
+        for name, call in (
+            ("conditional_systematic", lambda d: rs.conditional_systematic_resampling(
+                lw.to(d), m, a.to(d), u.to(d), us.to(d))),
+            ("conditional_multinomial", lambda d: rs.conditional_multinomial_resampling(
+                lw.to(d), m, a.to(d), um.to(d))),
+        ):
+            cpu, card = call(torch.device("cpu")), call(device)
+            check(torch.equal(cpu.parent_indices, card.parent_indices.cpu()) and torch.equal(cpu.b, card.b.cpu()),
+                  f"offpath: {name} at N={n} differs on the card")
+    stats = {"discrete_normal_functions": n_funcs, "discrete_normal_max_rel": worst, "wall_s": time.perf_counter() - t0}
+    print(f"offpath: {n_funcs} discrete-normal evaluations at f64, card vs CPU max relative {worst:.3g} "
+          f"(bound 1e-12); conditional systematic and multinomial resamplers equal at N=40 (U=256) and "
+          f"N=2400 M=50 (U=64); {stats['wall_s']:.2f} s")
+    return stats
+
+
+# ------------------------------------------------------------ simulators ----
+
+# Control-regime recovery of simulate_two_groups --run_inference at the
+# verb's defaults: the port's CPU runs read 0.981-0.994 over seeds 0-5 (the
+# JAX verb's 0.974-0.989 over seeds 0-2); the card draws another
+# realisation.
+SIMULATE_RECOVERY_BOUND = 0.95
+
+
+def simulate_two_groups_phase(device, root, seed=0):
+    """simulate_two_groups --run_inference through the CLI at the verb's
+    defaults (T = 2,000, R = 6, M = 50 so N = 2,400, B = 25): T - 1
+    launches, logZ finite, no degenerate step, the JAX verb's file set and
+    shapes, control-regime recovery above SIMULATE_RECOVERY_BOUND; the
+    simulation, filter and backward seconds apart. Returns (stats,
+    launches)."""
+    import numpy as np
+    from hygeia_tpu_torch import cli
+    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
+
+    out_dir = os.path.join(root, "simulate_two_groups")
+    T, N, B = 2000, 50 * (2 * R + R * R), 25
+    KERNEL.launches = 0
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        res = cli.main(["simulate_two_groups", "--results_dir", out_dir, "--run_inference", "--seed", str(seed),
+                        "--device", str(device)])
+    wall = time.perf_counter() - t0
+    launches = KERNEL.launches
+    print(text.getvalue().strip())
+    check(launches == T - 1, f"simulate_two_groups: kernel launched {launches} times for T={T}")
+    check(math.isfinite(res["log_z"]) and res["degenerate_steps"] == 0,
+          f"simulate_two_groups: logZ {res['log_z']}, {res['degenerate_steps']} degenerate steps")
+    expect = {
+        "true_merged_states.npz": ((T,), np.int32), "true_control_states.npz": ((T, 2), np.int32),
+        "true_case_states.npz": ((T, 2), np.int32),
+        f"optimal_backward_particles_merged_state_{N}_{seed}.npz": ((T, B), np.int16),
+        f"optimal_backward_particles_control_state_{N}_{seed}.npz": ((T, B, 2), np.int32),
+        f"optimal_backward_particles_case_state_{N}_{seed}.npz": ((T, B, 2), np.int32),
+        f"optimal_split_probs_{N}_{seed}.npz": ((T,), np.float32),
+        f"optimal_regime_probs_{N}_{seed}.npz": ((T, 2 * R), np.float32),
+    }
+    for name, (shape, dtype) in expect.items():
+        arr = np.load(os.path.join(out_dir, name))["arr_0"]
+        check(arr.shape == shape and arr.dtype == dtype, f"simulate_two_groups: {name} {arr.shape} {arr.dtype}")
+    for name in ("observations_control", "observations_case", "n_total_reads_control", "n_total_reads_case"):
+        arr = np.loadtxt(os.path.join(out_dir, f"{name}.csv.gz"), delimiter=",")
+        check(arr.shape == (T, 2), f"simulate_two_groups: {name}.csv.gz {arr.shape}")
+    check(len(os.listdir(out_dir)) == 12, f"simulate_two_groups: files {sorted(os.listdir(out_dir))}")
+    check(res["recovery"] > SIMULATE_RECOVERY_BOUND,
+          f"simulate_two_groups: control-regime recovery {res['recovery']:.3f}, bound {SIMULATE_RECOVERY_BOUND}")
+    stats = {"sites": T, "logZ": res["log_z"], "recovery": res["recovery"], "simulate_s": res["simulate_s"],
+             "filter_s": res["filter_s"], "backward_s": res["backward_s"], "wall_s": wall,
+             "split_fraction": float(np.mean(res["states"][:, 0] == 0)), "launches_per_site": launches / (T - 1)}
+    print(f"simulate_two_groups: T={T} N={N} B={B} logZ={res['log_z']:.2f} launches={launches} recovery "
+          f"{res['recovery']:.3f} (bound {SIMULATE_RECOVERY_BOUND}); simulation {res['simulate_s']:.2f} s, filter "
+          f"{res['filter_s']:.2f} s ({1e3 * res['filter_s'] / T:.3f} ms/site), backward {res['backward_s']:.2f} s, "
+          f"wall {wall:.2f} s")
+    return stats, launches
+
+
+# Regime recovery of estimate_parameters_and_regimes --estimate_regime_probabilities
+# at the true theta on simulate_data's counts (5,000 CpGs, 2 samples, the
+# verbs' defaults): the port's CPU runs of seeds 0-2 read 0.9988, 0.9908
+# and 0.9904 (the float32 hazard trap of a learned theta does not arise at
+# the true theta); the card draws another realisation.
+SIMULATE_DATA_RECOVERY_BOUND = 0.95
+
+
+def simulate_data_phase(device, root, n_sites, replicates=8, seed=0):
+    """simulate_data through the CLI (n_sites CpGs, 2 samples, the verb's
+    defaults), then estimate_parameters_and_regimes on its files with the
+    regime pass at the simulation's theta (the verbs share their defaults):
+    T - 1 launches, regime recovery against the simulated regimes printed
+    and held to SIMULATE_DATA_RECOVERY_BOUND; then
+    approximate_log_normalizing_constant with ``replicates`` replicates on
+    the same counts: T - 1 launches serve all of them, every value finite,
+    their spread printed. Returns (stats, launches of the regime pass,
+    launches of the replicates)."""
+    import numpy as np
+    from hygeia_tpu_torch import cli
+    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
+    from hygeia_tpu_torch.single_group.runner import approximate_log_normalizing_constant
+    from hygeia_tpu_torch.utils import io as hio
+
+    d = os.path.join(root, "simulate_data")
+    f = {k: os.path.join(d, f"{k}.csv") for k in ("regimes", "meth", "pos", "total", "probs")}
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["simulate_data", "--regimes_csv_file", f["regimes"], "--n_methylated_reads_csv_file", f["meth"],
+                  "--genomic_positions_csv_file", f["pos"], "--n_total_reads_csv_file", f["total"],
+                  "--n_cpg_sites", str(n_sites), "--rng_seed", str(seed), "--device", str(device)])
+    sim_s = time.perf_counter() - t0
+    regime = hio.read_headed_column(f["regimes"]).astype(np.int64)
+    total, meth = hio.read_headed_matrix(f["total"]), hio.read_headed_matrix(f["meth"])
+    check(regime.shape == (n_sites,) and total.shape == (2, n_sites) and meth.shape == (2, n_sites),
+          f"simulate_data: shapes {regime.shape} {total.shape} {meth.shape}")
+    check(bool(np.all((meth >= 0) & (meth <= total))), "simulate_data: counts outside [0, depth]")
+
+    KERNEL.launches = 0
+    t0 = time.perf_counter()
+    res = cli.main(["estimate_parameters_and_regimes", "--n_methylated_reads_csv_file", f["meth"],
+                    "--n_total_reads_csv_file", f["total"], "--genomic_positions_csv_file", f["pos"],
+                    "--estimate_regime_probabilities", "--regime_probabilities_csv_file", f["probs"],
+                    "--progress_every", "0", "--device", str(device)])
+    est_s = time.perf_counter() - t0
+    est_launches = KERNEL.launches
+    check(est_launches == n_sites - 1, f"simulate_data: the regime pass launched {est_launches} times")
+    _cols, probs = hio.read_headed_table(f["probs"])
+    recovery = float(np.mean(probs[:, 1:].argmax(1) == regime))
+    check(math.isfinite(float(res.log_normalizing_constant[0])), "simulate_data: the regime pass's logZ")
+    check(recovery > SIMULATE_DATA_RECOVERY_BOUND,
+          f"simulate_data: regime recovery {recovery:.3f}, bound {SIMULATE_DATA_RECOVERY_BOUND}")
+
+    KERNEL.launches = 0
+    t0 = time.perf_counter()
+    log_z = approximate_log_normalizing_constant(n_replicates=replicates, n_methylated_reads=meth.T,
+                                                 n_total_reads=total.T, device=device, rng_seed=seed)
+    rep_s = time.perf_counter() - t0
+    rep_launches = KERNEL.launches
+    check(rep_launches == n_sites - 1, f"replicates: launched {rep_launches} times for {replicates} replicates")
+    check(log_z.shape == (replicates,) and bool(np.all(np.isfinite(log_z))), f"replicates: logZ {log_z}")
+    stats = {"sites": n_sites, "simulate_s": sim_s, "regime_pass_s": est_s, "recovery": recovery,
+             "regime_pass_logZ": float(res.log_normalizing_constant[0]), "replicates": replicates,
+             "replicates_s": rep_s, "replicate_logZ": [float(x) for x in log_z],
+             "replicate_logZ_sd": float(np.std(log_z, ddof=1)),
+             "regime_pass_ms_per_site": 1e3 * est_s / n_sites, "replicates_ms_per_site": 1e3 * rep_s / n_sites,
+             "launches_per_site": est_launches / (n_sites - 1)}
+    print(f"simulate_data: {n_sites} CpGs simulated in {sim_s:.2f} s; regime pass at the true theta: "
+          f"launches={est_launches}, {est_s:.2f} s ({stats['regime_pass_ms_per_site']:.3f} ms/site), recovery "
+          f"{recovery:.3f}; {replicates} replicates of logZ in one call: launches={rep_launches}, {rep_s:.2f} s "
+          f"({stats['replicates_ms_per_site']:.3f} ms/site), mean {np.mean(log_z):.3f}, sd "
+          f"{stats['replicate_logZ_sd']:.3g}, range {np.ptp(log_z):.3g}, {len(np.unique(log_z))} distinct")
+    return stats, est_launches, rep_launches
+
+
+# ---------------------------------------------------------------- trace ----
+
+def _trace_shares(path):
+    """Counts and shares from a torch.profiler Chrome trace: CUDA kernels
+    launched inside the ``infer.filter`` and ``infer.backward`` ranges (by
+    the correlation of each kernel with its launch call), K1's kernels, and
+    the device's busy share of the traced window (the union of kernel,
+    copy and set intervals over the span of all events)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    gpu = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})}
+    ranges = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") == "user_annotation" and e["name"] in ("infer.filter", "infer.backward")}
+    in_range = {name: 0 for name in ranges}
+    for k in kernels:
+        ts = launch_ts.get(k.get("args", {}).get("correlation"))
+        for name, (lo, hi) in ranges.items():
+            if ts is not None and lo <= ts <= hi:
+                in_range[name] += 1
+    lo = min(e["ts"] for e in events)
+    hi = max(e["ts"] + e["dur"] for e in events)
+    busy, end = 0.0, lo
+    for s, e in sorted((g["ts"], g["ts"] + g["dur"]) for g in gpu):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return {"events": len(events), "kernels": len(kernels),
+            "k1_kernels": sum("optimal_resampling" in k["name"] for k in kernels),
+            "kernels_in_range": in_range, "ranges_us": {k: v[1] - v[0] for k, v in ranges.items()},
+            "window_us": hi - lo, "busy_us": busy, "busy_share": busy / (hi - lo) if hi > lo else 0.0}
+
+
+def trace_phase(device, root, data_dir, sg_dir, segment_size, buffer_size, seed=0):
+    """infer --trace_dir through the CLI on batch 0 of phase 5's chromosome
+    (segment_size + buffer_size sites, M = 50, one seed), then the same call
+    without it: every npz array and the logZ file equal bit for bit; one
+    trace file written, its size; from it the CUDA kernels a site of the
+    filter and of the backward pass, K1's kernels (checked equal to the
+    wrapper's counter), the device's busy share of the traced window and
+    its busy time against the untraced run's filter and backward seconds.
+    Returns (stats, launches of the traced run)."""
+    import numpy as np
+    from hygeia_tpu_torch import cli
+    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
+
+    T = segment_size + buffer_size
+    trace_dir = os.path.join(root, "trace")
+    outs = {}
+    launches = walls = None
+    for label, extra in (("traced", ["--trace_dir", trace_dir]), ("plain", [])):
+        results = os.path.join(root, f"results_{label}")
+        KERNEL.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["infer", "--data_dir", data_dir, "--single_group_dir", sg_dir, "--results_dir", results,
+                      "--chrom", "1", "--segment_size", str(segment_size), "--buffer_size", str(buffer_size),
+                      "--batch", "0", "--seed", str(seed), "--device", str(device), *extra])
+        outs[label] = (os.path.join(results, "chrom_1_0"), time.perf_counter() - t0, KERNEL.launches)
+    (a_dir, wall_traced, launches), (b_dir, wall_plain, plain_launches) = outs["traced"], outs["plain"]
+    check(launches == plain_launches == T - 1, f"trace: launches {launches} traced, {plain_launches} plain")
+    names = sorted(n for n in os.listdir(a_dir) if n.endswith(".npz") or n.startswith("log_normalizing"))
+    check(names == sorted(n for n in os.listdir(b_dir) if n.endswith(".npz") or n.startswith("log_normalizing")),
+          "trace: other files with --trace_dir")
+    for name in names:
+        if name.endswith(".npz"):
+            a, b = np.load(os.path.join(a_dir, name))["arr_0"], np.load(os.path.join(b_dir, name))["arr_0"]
+            check(a.dtype == b.dtype and np.array_equal(a, b), f"trace: {name} differs with --trace_dir")
+        else:
+            with open(os.path.join(a_dir, name)) as fa, open(os.path.join(b_dir, name)) as fb:
+                check(fa.read() == fb.read(), "trace: logZ differs with --trace_dir")
+    traces = sorted(f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")) if os.path.isdir(
+        trace_dir) else []
+    check(len(traces) == 1, f"trace: {len(traces)} trace files written in {trace_dir}")
+    path = os.path.join(trace_dir, traces[0])
+    size = os.path.getsize(path)
+    t0 = time.perf_counter()
+    sh = _trace_shares(path)
+    parse_s = time.perf_counter() - t0
+    check(sh["kernels"] > 0, "trace: no CUDA kernel in the trace")
+    check(sh["k1_kernels"] == launches,
+          f"trace: {sh['k1_kernels']} K1 kernels in the trace, the wrapper counted {launches} (CUPTI records "
+          "what the ctypes launch of the kernel puts on the stream only if it sees the launch)")
+    per_site = {k: v / T for k, v in sh["kernels_in_range"].items()}
+    # The profiler slows the host several times over, so the traced window's
+    # busy share understates the untraced run's: set the device time the
+    # trace holds against the untraced run's filter and backward seconds.
+    loop_s = 0.0
+    for name in (f"optimal_time_{seed}.txt", f"optimal_time_backward_{seed}.txt"):
+        with open(os.path.join(b_dir, name)) as f:
+            loop_s += float(next(iter(ast.literal_eval(f.read()).values())))
+    busy_untraced = sh["busy_us"] / 1e6 / loop_s
+    stats = {"sites": T, "trace_bytes": size, "trace_bytes_per_site": size / T, "parse_s": parse_s,
+             "wall_traced_s": wall_traced, "wall_plain_s": wall_plain, "kernels_per_site": per_site,
+             "device_ms_per_site": sh["busy_us"] / 1e3 / T, "untraced_loops_s": loop_s,
+             "busy_share_of_untraced_loops": busy_untraced, **sh}
+    print(f"trace: T={T} one trace of {size} bytes ({size / T:.0f} a site, {sh['events']} events) parsed in "
+          f"{parse_s:.2f} s; outputs equal to the untraced run's; CUDA kernels a site: "
+          f"{ {k: round(v, 2) for k, v in per_site.items()} }; K1 kernels in the trace {sh['k1_kernels']} = "
+          f"wrapper {launches}; device busy {sh['busy_us'] / 1e3:.2f} ms of a {sh['window_us'] / 1e3:.2f} ms "
+          f"window ({100 * sh['busy_share']:.1f}%), {stats['device_ms_per_site']:.3f} ms a site, "
+          f"{100 * busy_untraced:.1f}% of the untraced run's filter and backward {loop_s:.3f} s; wall traced "
+          f"{wall_traced:.2f} s, untraced {wall_plain:.2f} s")
+    return stats, launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--chrom_sites", type=int, default=40_000,
@@ -1388,6 +1755,10 @@ def main(argv=None):
     ap.add_argument("--marginal_sites", type=int, default=2_000,
                     help="infer --marginal's segment size (default 2000)")
     ap.add_argument("--marginal_buffer", type=int, default=200, help="infer --marginal's halo size (default 200)")
+    ap.add_argument("--simulate_data_sites", type=int, default=5_000,
+                    help="CpGs of the simulate_data phase (default 5000)")
+    ap.add_argument("--trace_sites", type=int, default=300, help="infer --trace_dir's segment size (default 300)")
+    ap.add_argument("--trace_buffer", type=int, default=30, help="infer --trace_dir's halo size (default 30)")
     args = ap.parse_args(argv)
     if args.sites + args.buffer > args.chrom_sites:
         ap.error("the infer segment and halo must fit in the chromosome")
@@ -1395,6 +1766,8 @@ def main(argv=None):
         ap.error("the marginal segment must lie inside phase 7's segment")
     if args.sites + args.buffer <= args.stream_block:
         ap.error("the infer window must be longer than one streamed block")
+    if args.trace_sites + args.trace_buffer > args.chrom_sites:
+        ap.error("the traced segment and halo must fit in the chromosome")
 
     import torch
 
@@ -1406,6 +1779,7 @@ def main(argv=None):
         return 2
     sys.path.insert(0, HERE)
     device = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     card = card_line()
     print(card)
@@ -1424,6 +1798,7 @@ def main(argv=None):
 
     max_err, times = kernel_phase(device)
     onsets = hazard_phase(device)
+    offpath = offpath_phase(device)
 
     root = tempfile.mkdtemp(prefix="hygeia_smoke_")
     try:
@@ -1440,11 +1815,14 @@ def main(argv=None):
                                              args.robust_buffer)
         bl_stats, bl_launches = blocked_phase(device, root, regime, args.theta_block, args.theta_halo,
                                               args.theta_warmup)
-        pl_stats, pl_launches = pipeline_phase(device, root, args.pipeline_sites)
+        pl_stats, pl_launches, plb_launches = pipeline_phase(device, root, args.pipeline_sites)
         sgp_stats, sgp_launches = sg_pipeline_phase(device, root, args.sg_pipeline_sites)
         mg_stats, mg_launches = marginal_phase(device, root, data_dir, sg_dir, dmr, args.marginal_sites,
                                                args.marginal_buffer, os.path.join(root, "results", "chrom_1_0"),
                                                stats)
+        s2_stats, s2_launches = simulate_two_groups_phase(device, root)
+        sd_stats, sd_launches, rep_launches = simulate_data_phase(device, root, args.simulate_data_sites)
+        tr_stats, tr_launches = trace_phase(device, root, data_dir, sg_dir, args.trace_sites, args.trace_buffer)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1462,7 +1840,8 @@ def main(argv=None):
         "source": "hygeia_tpu_torch/csrc/optimal_resampling.cu",
         "replaces": "hygeia_tpu/ops/pallas_resampling.py:50",
         "launches": (sg_launches + launches + st_launches + ch_launches + rb_launches + bl_launches + pl_launches
-                     + sgp_launches + mg_launches),
+                     + plb_launches + sgp_launches + mg_launches + s2_launches + sd_launches + rep_launches
+                     + tr_launches),
         "launches_single_group": sg_launches,
         "launches_two_group": launches,
         "launches_streamed": st_launches,
@@ -1472,6 +1851,11 @@ def main(argv=None):
         "launches_pipeline": pl_launches,
         "launches_single_group_pipeline": sgp_launches,
         "launches_marginal": mg_launches,
+        "launches_pipeline_bucket_resume": plb_launches,
+        "launches_simulate_two_groups": s2_launches,
+        "launches_simulate_data_regimes": sd_launches,
+        "launches_replicates": rep_launches,
+        "launches_trace": tr_launches,
         # This run's counts per site, per path: over the resampling sites
         # (single group, two group), over the window's sites (streamed) and
         # over the sites of the chunks' windows (chromosome: one launch
@@ -1484,7 +1868,11 @@ def main(argv=None):
                               "blocked": bl_stats["launches_per_site"],
                               "pipeline": pl_stats["launches_per_site"],
                               "single_group_pipeline": sgp_stats["launches_per_site"],
-                              "marginal": mg_stats["launches_per_site"]},
+                              "marginal": mg_stats["launches_per_site"],
+                              "simulate_two_groups": s2_stats["launches_per_site"],
+                              "simulate_data_regimes": sd_stats["launches_per_site"],
+                              "replicates": rep_launches / (args.simulate_data_sites - 1),
+                              "trace": tr_launches / (args.trace_sites + args.trace_buffer - 1)},
         "max_abs_err": max_err,
         # The top-level times are the single-group engine's shape.
         "shape": shapes["single_group"],
@@ -1501,7 +1889,9 @@ def main(argv=None):
         "by_shape": {k: {"shape": shapes[k], **times[k]} for k in shapes},
     }], "card": card, "hazard_onsets": onsets, "single_group": sg_stats, "slice": stats,
         "streamed": st_stats, "chromosome": ch_stats, "robust": rb_stats, "blocked": bl_stats,
-        "pipeline": pl_stats, "single_group_pipeline": sgp_stats, "marginal": mg_stats}))
+        "pipeline": pl_stats, "single_group_pipeline": sgp_stats, "marginal": mg_stats, "offpath": offpath,
+        "simulate_two_groups": s2_stats, "simulate_data": sd_stats, "trace": tr_stats,
+        "smoke_s": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,8 @@
   aggregate                         merge per-(batch, seed) outputs
   get_dmps                          FDR-controlled DMP calling
   estimate_parameters_and_regimes   single-group online engine
+  simulate_data                     single-group generative simulation
+  simulate_two_groups               two-group generative simulation + self-test
   make_bed_file                     regime probabilities -> BED9 (+ bgzip, tabix)
   run --two_group                   the two-group pipeline, resumable
   run                               the single-group pipeline, resumable
@@ -17,9 +19,10 @@
         --cpg_file_path cpg.tsv --sample_sheet samples.csv --device cuda
 
 Same flags and defaults as the verbs of ``hygeia_tpu.cli``; the verbs that
-run the model (``infer``, ``estimate_parameters_and_regimes``, ``run``)
-take ``--device`` (default ``cuda``). There is no fallback: when the device
-asked for is not there, the command raises; it never carries on on the CPU.
+run the model or a simulator (``infer``, ``estimate_parameters_and_regimes``,
+``run``, ``simulate_data``, ``simulate_two_groups``) take ``--device``
+(default ``cuda``). There is no fallback: when the device asked for is not
+there, the command raises; it never carries on on the CPU.
 The CPU path exists for the tests, which pass ``--device cpu`` themselves.
 The other verbs are host numpy work, as in the JAX package.
 """
@@ -111,7 +114,10 @@ def build_parser():
                     help="with --run_streaming_blocks: the whole chromosome's (batch x seed) units in "
                          "shared streamed site loops (runner.infer_chromosome_streamed)")
     sp.add_argument("--no_resume", action="store_true")
-    sp.add_argument("--bucket_dir", default=None, help="work-dir mirror: not ported yet (raises)")
+    sp.add_argument("--bucket_dir", default=None,
+                    help="mirror the output tree to a plain path or file:// URL (other schemes "
+                         "through fsspec) after every completed stage, and restore it before a "
+                         "resumed run")
     sp.add_argument("--stub_run", action="store_true", help="wire the stage tree with empty outputs")
     sp.add_argument("--mesh", default=None, metavar="GxS",
                     help="INFER on a (genome x seed) device mesh: not ported yet (raises)")
@@ -145,7 +151,7 @@ def build_parser():
                          "many sites: one block of history on the device; the same outputs "
                          "as without it")
     sp.add_argument("--trace_dir", default=None,
-                    help="profiler trace of the device computation: not ported yet, raises")
+                    help="write a torch.profiler trace of each seed chunk's computation here")
     sp.add_argument("--chrom", default="22")
     sp.add_argument("--results_dir", default="test")
     sp.add_argument("--data_dir", default="data")
@@ -154,6 +160,44 @@ def build_parser():
     sp.add_argument("--batch", type=int, default=0)
     sp.add_argument("--segment_size", type=int, default=100000)
     sp.add_argument("--buffer_size", type=int, default=5000)
+    _add_device(sp)
+
+    sp = sub.add_parser("simulate_data", help="single-group generative simulation")
+    sp.add_argument("--mu", type=_csv_floats, default=[0.99, 0.01, 0.80, 0.20, 0.50, 0.50])
+    sp.add_argument("--sigma", type=_csv_floats, default=[0.05, 0.05, 0.20, 0.20, 0.20, 0.2886751])
+    sp.add_argument("--omega", type=_csv_floats, default=[0.995, 0.975, 0.950, 0.925, 0.900, 0.900])
+    sp.add_argument("--kappa", type=_csv_floats, default=[2.0] * 6)
+    sp.add_argument("--u", type=int, default=2)
+    sp.add_argument("--n_samples", type=int, default=2)
+    sp.add_argument("--n_cpg_sites", type=int, default=1000)
+    sp.add_argument("--lambda_reads", type=float, default=20.0)
+    sp.add_argument("--rng_seed", type=int, default=0)
+    sp.add_argument("--regimes_csv_file", required=True)
+    sp.add_argument("--n_methylated_reads_csv_file", required=True)
+    sp.add_argument("--genomic_positions_csv_file", required=True)
+    sp.add_argument("--n_total_reads_csv_file", required=True)
+    _add_device(sp)
+
+    sp = sub.add_parser("simulate_two_groups", help="two-group generative simulation + self-test")
+    sp.add_argument("--mu", type=_csv_floats, default=[0.95, 0.05, 0.80, 0.20, 0.50, 0.50])
+    sp.add_argument("--sigma", type=_csv_floats, default=[0.05, 0.05, 0.1, 0.1, 0.1, 0.2886751])
+    sp.add_argument("--minimum_duration", type=int, default=3)
+    sp.add_argument("--omega_case", type=float, default=0.8)
+    sp.add_argument("--omega_control", type=float, default=0.8)
+    sp.add_argument("--regimes_config", type=int, default=None, choices=range(1, 11),
+                    help="use one of the reference's 10 fixed (mu, sigma) scenario presets")
+    sp.add_argument("--merge_log_prob", type=float, default=float(np.log(0.1)))
+    sp.add_argument("--split_prob", type=float, default=0.01)
+    sp.add_argument("--n_observations", type=int, default=2000)
+    sp.add_argument("--n_samples", type=int, default=2)
+    sp.add_argument("--lambda_reads", type=float, default=20.0)
+    sp.add_argument("--missing_prob", type=float, default=0.0)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--results_dir", required=True)
+    sp.add_argument("--num_resampled_particles", type=int, default=50)
+    sp.add_argument("--num_samples_backward", type=int, default=25)
+    sp.add_argument("--run_inference", action="store_true",
+                    help="also run the filter on the simulated data (self-test)")
     _add_device(sp)
 
     sp = sub.add_parser("estimate_parameters_and_regimes",
@@ -375,6 +419,31 @@ def main(argv=None):
         return None
     if args.verb == "run":
         return _run(args)
+    if args.verb == "simulate_data":
+        from hygeia_tpu_torch.single_group.runner import simulate_data
+
+        sim = simulate_data(
+            regimes_csv_file=args.regimes_csv_file,
+            n_methylated_reads_csv_file=args.n_methylated_reads_csv_file,
+            genomic_positions_csv_file=args.genomic_positions_csv_file,
+            n_total_reads_csv_file=args.n_total_reads_csv_file,
+            device=resolve_device(args.device),
+            mu=args.mu,
+            sigma=args.sigma,
+            omega=args.omega,
+            kappa=args.kappa,
+            u=args.u,
+            n_samples=args.n_samples,
+            n_cpg_sites=args.n_cpg_sites,
+            lambda_reads=args.lambda_reads,
+            rng_seed=args.rng_seed,
+        )
+        print(f"Simulated {args.n_cpg_sites} CpG sites")
+        return sim
+    if args.verb == "simulate_two_groups":
+        from hygeia_tpu_torch.two_group.simulate_runner import simulate_two_groups
+
+        return simulate_two_groups(args, resolve_device(args.device))
     if args.verb == "infer":
         from hygeia_tpu_torch.two_group.runner import infer_segment
 

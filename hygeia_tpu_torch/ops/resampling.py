@@ -203,3 +203,78 @@ def optimal_finite_state_resampling(log_weights, num_offspring, u_sys, u_mult):
         new_log_weights=new_w.to(dtype),
         top_m_indices=kept_parents.to(torch.int32),
     )
+
+
+# Conditional resampling (conditional-SMC support; off the reference's main
+# path, which uses only the unconditional schemes).
+
+
+class ConditionalResampleResult(NamedTuple):
+    parent_indices: torch.Tensor  # (U, M) int32; parent_indices[u, b[u]] == a[u]
+    b: torch.Tensor  # (U,) int32 index of the distinguished offspring
+
+
+def conditional_multinomial_resampling(log_weights, num_offspring, conditioning_parent, u_mult, *,
+                                       normalized=False):
+    """M iid categorical parents from the uniforms u_mult (U, M), then, as
+    the reference does, the distinguished offspring fixed at b = 0 with its
+    parent forced to ``conditioning_parent`` (U,)."""
+    U = log_weights.shape[0]
+    parents = multinomial_resampling(log_weights, num_offspring, u_mult, normalized=normalized)
+    a = torch.as_tensor(conditioning_parent, device=log_weights.device).to(torch.int32).reshape(U)
+    parents[:, 0] = a
+    return ConditionalResampleResult(parents, torch.zeros((U,), dtype=torch.int32, device=log_weights.device))
+
+
+def conditional_systematic_resampling(log_norm_weights, num_offspring, conditioning_parent, u_sys, u_strat):
+    """Conditional systematic resampling given normalised log weights (U, N),
+    the conditioning path's parent a (U,), the systematic uniform u_sys (U,)
+    and the stratum uniform u_strat (U,).
+
+    As hygeia_tpu/ops/resampling.py:343 computes it: (1) the distinguished
+    offspring index b drawn from the strata compatible with a (interior
+    strata weigh 1, the boundary strata their overlap mass) by inverse CDF;
+    (2) the systematic uniform restricted to the (a, b)-compatible range;
+    (3) systematic resampling on the grid j + u against Q = cumsum(M w),
+    parent[b] = a and offspring after b never below a; when the
+    conditioning path has numerically zero weight (the grid runs past N),
+    every offspring keeps its own index and b = a. Prefix sums are
+    ``torch.cumsum`` (the JAX module's blocked matrix-product prefix sum
+    computes the same sums)."""
+    U, n = log_norm_weights.shape
+    m = num_offspring
+    dev = log_norm_weights.device
+    a = torch.as_tensor(conditioning_parent, device=dev).to(torch.int64).reshape(U)
+    u_raw = torch.as_tensor(u_sys, dtype=log_norm_weights.dtype, device=dev).reshape(U)
+    u_strat = torch.as_tensor(u_strat, dtype=log_norm_weights.dtype, device=dev).reshape(U)
+
+    q = torch.cumsum(m * torch.exp(log_norm_weights), dim=-1)
+    bins = torch.clamp(torch.ceil(q) - 1, 0, m - 1).to(torch.int64)
+    pick = lambda x, i: x.gather(1, i[:, None])[:, 0]
+    a_prev = torch.clamp(a - 1, min=0)
+    bin_a, q_a = pick(bins, a), pick(q, a)
+    bin_p = torch.where(a > 0, pick(bins, a_prev), bin_a)
+    q_p = pick(q, a_prev)
+    degenerate = (a == 0) | (bin_a == bin_p)
+
+    s = torch.arange(m, device=dev)
+    w_aux = ((s > bin_p[:, None]) & (s < bin_a[:, None])).to(q.dtype)
+    w_aux = torch.where(s == bin_a[:, None], (q_a - bin_a)[:, None], w_aux)
+    w_aux = torch.where(s == bin_p[:, None], (bin_p - q_p + 1.0)[:, None], w_aux)
+    cum_aux = torch.cumsum(w_aux, dim=-1)
+    b_sampled = (cum_aux < u_strat[:, None] * cum_aux[:, -1:]).sum(dim=-1)
+    b = torch.where(degenerate, bin_a, b_sampled)
+
+    lb = torch.where((a > 0) & (b == bin_p), q_p - bin_p, 0.0)
+    ub = torch.where(b == bin_a, q_a - bin_a, 1.0)
+    u = lb + (ub - lb) * u_raw
+    t = s.to(q.dtype)[None, :] + u[:, None]
+    count = _count_below(q, t)
+    after_b = s[None, :] > b[:, None]
+    parents = torch.where(after_b, torch.maximum(count, a[:, None]), count)
+    overflow = (after_b & (count > n - 1)).any(dim=-1)
+    parents = torch.clamp(parents, 0, n - 1)
+    parents = torch.where(s[None, :] == b[:, None], a[:, None], parents)
+    parents = torch.where(overflow[:, None], s[None, :], parents)
+    b = torch.where(overflow, a, b)
+    return ConditionalResampleResult(parents.to(torch.int32), b.to(torch.int32))

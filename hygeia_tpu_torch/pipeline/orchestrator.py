@@ -14,9 +14,10 @@ completed stages. The output trees are the JAX pipeline's:
 
 The theta and INFER stages run on ``device`` (the CLI's ``--device``,
 default cuda); preprocessing, segments, aggregation and DMP calling are
-host numpy work, as in the JAX package. Not ported yet, and raising
-NotImplementedError: the meshed INFER (``mesh_shape``) and the work-dir
-mirror (``bucket_dir``).
+host numpy work, as in the JAX package. With ``bucket_dir`` the output
+tree is mirrored to a store after every completed stage and restored from
+it before a resumed run (utils/staging.py). Not ported yet, and raising
+NotImplementedError: the meshed INFER (``mesh_shape``).
 """
 
 from __future__ import annotations
@@ -146,8 +147,30 @@ def _stage(path: Path, resume: bool):
     return not (resume and _marker(path).exists())
 
 
-def _finish(path: Path):
-    _marker(path).write_text(json.dumps({"t": time.time()}))
+def _open_mirror(bucket_dir, out: Path, resume, trace: StageTrace):
+    """(WorkdirMirror, output root) for ``bucket_dir``, or None. On a
+    resumed run the tree is first restored from the bucket (a
+    ``BUCKET_RESTORE`` trace row counts the files fetched)."""
+    if not bucket_dir:
+        return None
+    from hygeia_tpu_torch.utils.staging import WorkdirMirror
+
+    mirror = WorkdirMirror(bucket_dir)
+    if resume:
+        fetched = mirror.restore(out)
+        if fetched:
+            trace.record("BUCKET_RESTORE", "-", 0.0, status=f"{fetched} files")
+    return mirror, out
+
+
+def _finish(path: Path, mirror, marker: Path | None = None):
+    """Mark a stage done (``path/.done`` or ``marker``) and mirror the run's
+    tree when a bucket is attached and the stage lies inside the run."""
+    (marker or _marker(path)).write_text(json.dumps({"t": time.time()}))
+    if mirror is not None:
+        store, root = mirror
+        if Path(path).resolve().is_relative_to(root.resolve()):
+            store.sync_up(root)
 
 
 def run_two_group(
@@ -201,8 +224,6 @@ def run_two_group(
     then skips the missing units."""
     if mesh_shape is not None:
         _not_ported("--mesh (meshed INFER)", "item 14")
-    if bucket_dir:
-        _not_ported("--bucket_dir (utils/staging.py)", "item 17")
     if stream_batched and not streaming_blocks:
         raise ValueError(
             "stream_batched requires streaming_blocks (--run_stream_batched only applies to the "
@@ -218,6 +239,7 @@ def run_two_group(
     if device is None:
         raise ValueError("run_two_group needs a device for its model stages")
     device = torch.device(device)
+    mirror = _open_mirror(bucket_dir, out, resume, trace)
     sg_kw = dict(mu=mu, sigma=sigma, u=u, n_particles=n_particles_single_group, epsilon=epsilon,
                  steps_per_update=n_steps_without_parameter_update,
                  learning_rate_exponent=learning_rate_exponent,
@@ -232,7 +254,7 @@ def run_two_group(
                 _single_group_on_counts_batched(
                     [(Path(preprocessed_dir), sg_root / str(c), c, "control") for c in pending], **sg_kw)
                 for c in pending:
-                    _finish(sg_root / str(c))
+                    _finish(sg_root / str(c), mirror)
 
             if _attempt(_sg_batched, trace=trace, stage="ESTIMATE_PARAMETERS_AND_REGIMES[batched]",
                         chrom=",".join(map(str, pending)), max_retries=1):
@@ -251,14 +273,14 @@ def run_two_group(
                         control_id_names=control_id_names, case_data_paths=case_data_paths,
                         case_id_names=case_id_names)
             trace.record("PREPROCESS", chrom, time.time() - t0)
-            _finish(pre_dir)
+            _finish(pre_dir, mirror)
 
         # ---- 2: single-group estimation on the control group -------------
         sg_dir = out / "2_ESTIMATE_PARAMETERS_AND_REGIMES" / str(chrom)
         if chrom not in sg_batched_done and _stage(sg_dir, resume):
             def _sg_stage(attempt):
                 _single_group_on_counts(pre_dir, sg_dir, chrom, group="control", **sg_kw)
-                _finish(sg_dir)
+                _finish(sg_dir, mirror)
 
             if not _attempt(_sg_stage, trace=trace, stage="ESTIMATE_PARAMETERS_AND_REGIMES", chrom=chrom,
                             max_retries=max_retries):
@@ -275,7 +297,7 @@ def run_two_group(
 
             write_segments_csv(seg_dir / f"chrom_segments_{chrom}.csv",
                                chrom_segments(len(positions), str(chrom), segment_size))
-            _finish(seg_dir)
+            _finish(seg_dir, mirror)
 
         # ---- 4: infer over (batch x seed) ---------------------------------
         infer_dir = out / "4_INFER"
@@ -296,7 +318,7 @@ def run_two_group(
                     infer_chromosome_streamed(
                         **infer_kw,
                         max_units_per_call=max(1, (len(inference_seeds) * n_batches) >> (attempt - 1)))
-                    _finish(unit)
+                    _finish(unit, mirror)
 
                 any_unit_failed |= not _attempt(_infer_streambatched, trace=trace, stage="INFER[streambatched]",
                                                 chrom=chrom, max_retries=max_retries)
@@ -316,7 +338,7 @@ def run_two_group(
                 # of device memory on the whole seed batch backs off.
                 infer_segment(**infer_kw, batch=batch,
                               max_seeds_per_call=max(1, len(inference_seeds) >> (attempt - 1)))
-                _finish(unit)
+                _finish(unit, mirror)
 
             any_unit_failed |= not _attempt(_infer_unit, trace=trace, stage=f"INFER[{batch}]", chrom=chrom,
                                             max_retries=max_retries)
@@ -332,7 +354,7 @@ def run_two_group(
                 aggregate_chromosome(str(infer_dir), str(agg_dir), chrom, seeds=len(inference_seeds),
                                      num_particles=n_backward_total, num_batches=n_batches,
                                      skip_missing=any_unit_failed)
-                _finish(agg_dir)
+                _finish(agg_dir, mirror)
 
             if not _attempt(_agg_stage, trace=trace, stage="AGGREGATE_RESULTS", chrom=chrom,
                             max_retries=max_retries):
@@ -345,7 +367,7 @@ def run_two_group(
 
             def _dmp_stage(attempt):
                 call_dmps(str(agg_dir), str(dmp_dir), chrom, n_regimes=R, fdr_thresholds=fdr_thresholds)
-                _finish(dmp_dir)
+                _finish(dmp_dir, mirror)
 
             _attempt(_dmp_stage, trace=trace, stage="GET_DMPS", chrom=chrom, max_retries=max_retries)
 
@@ -597,8 +619,6 @@ def run_single_group(
     unit (``ESTIMATE_PARAMETERS[batched]``, ``ESTIMATE_REGIMES[batched]``);
     a unit the batched pass did not finish runs alone. The engine stages run
     on ``device``; markers make a re-run skip finished stages."""
-    if bucket_dir:
-        _not_ported("--bucket_dir (utils/staging.py)", "item 17")
     out = Path(output_dir)
     trace = StageTrace(out)
     if sample_sheet is not None and raw_samples is None:
@@ -610,6 +630,7 @@ def run_single_group(
     if device is None:
         raise ValueError("run_single_group needs a device for its model stages")
     device = torch.device(device)
+    mirror = _open_mirror(bucket_dir, out, resume, trace)
 
     units = []  # (sample_id, chrom, pre_dir, group)
     if raw_samples is not None:
@@ -623,7 +644,7 @@ def run_single_group(
                                    pre_dir=pre_dir):
                         process_bed(cpg_file_path, pre_dir, chrom, case_data_paths=[bed_path],
                                     case_id_names=[sample_id])
-                        _finish(pre_dir)
+                        _finish(pre_dir, mirror)
 
                     if not _attempt(_pre_stage, trace=trace, stage="SINGLE_GRP_PREPROCESS",
                                     chrom=f"{sample_id}:{chrom}", max_retries=max_retries):
@@ -657,7 +678,7 @@ def run_single_group(
                 _single_group_on_counts_batched(pending1, estimate_parameters=True,
                                                 estimate_regimes=False, **sg_kw)
                 for _pre, d, _c, _g in pending1:
-                    _finish(d)
+                    _finish(d, mirror)
 
             if _attempt(_est_batched, trace=trace, stage="ESTIMATE_PARAMETERS[batched]",
                         chrom=f"{len(pending1)} units", max_retries=1):
@@ -673,7 +694,7 @@ def run_single_group(
                 _single_group_on_counts_batched(pending2, estimate_parameters=False,
                                                 estimate_regimes=True, theta_fixed=theta2, **sg_kw)
                 for _pre, d, _c, _g in pending2:
-                    _finish(d)
+                    _finish(d, mirror)
 
             if _attempt(_reg_batched, trace=trace, stage="ESTIMATE_REGIMES[batched]",
                         chrom=f"{len(pending2)} units", max_retries=1):
@@ -686,7 +707,7 @@ def run_single_group(
             def _est_stage(attempt):
                 _single_group_on_counts(pre_dir, est_dir, chrom, group=grp, estimate_regimes=False,
                                         estimate_parameters=True, **sg_kw)
-                _finish(est_dir)
+                _finish(est_dir, mirror)
 
             if not _attempt(_est_stage, trace=trace, stage="ESTIMATE_PARAMETERS", chrom=unit_tag,
                             max_retries=max_retries):
@@ -700,7 +721,7 @@ def run_single_group(
                 theta = hio.read_theta(est_dir / f"theta_{chrom}.csv.gz")
                 _single_group_on_counts(pre_dir, reg_dir, chrom, group=grp, estimate_regimes=True,
                                         estimate_parameters=False, theta_fixed=theta, **sg_kw)
-                _finish(reg_dir)
+                _finish(reg_dir, mirror)
 
             if not _attempt(_reg_stage, trace=trace, stage="ESTIMATE_REGIMES", chrom=unit_tag,
                             max_retries=max_retries):
@@ -718,7 +739,7 @@ def run_single_group(
 
                 make_bed(chrom, reg_dir / f"regime_probabilities_{chrom}.csv.gz",
                          bed_dir / f"{sample_id}_regimes_{chrom}.bed", compress=True)
-                bed_marker.write_text(json.dumps({"t": time.time()}))
+                _finish(bed_dir, mirror, marker=bed_marker)
 
             _attempt(_bed_stage, trace=trace, stage="GENERATE_SINGLE_GROUP_BED_FILES", chrom=unit_tag,
                      max_retries=max_retries)

@@ -469,9 +469,14 @@ def _site_uniforms(t, n_units, n_offspring, u_sys, u_mult, generator, device, sh
     """(u_sys (U,), u_mult (U, M)) of site t: the injected draws when given
     (row t - 1), else fresh ones from ``generator``; with ``shared`` one
     unit's draws for every unit (those of a one-unit run on the same
-    generator)."""
+    generator); with a list of U generators unit u draws from generator u
+    what a one-unit run on it draws."""
     if u_sys is not None:
         return u_sys[t - 1], u_mult[t - 1]
+    if isinstance(generator, (list, tuple)):
+        draws = [(torch.rand((1,), generator=g, device=device),
+                  torch.rand((1, n_offspring), generator=g, device=device)) for g in generator]
+        return torch.cat([us for us, _ in draws]), torch.cat([um for _, um in draws])
     if shared:
         us = torch.rand((1,), generator=generator, device=device)
         um = torch.rand((1, n_offspring), generator=generator, device=device)
@@ -484,6 +489,8 @@ def _check_uniforms(T, U, M, u_sys, u_mult, generator, device):
     if u_sys is None and u_mult is None:
         if generator is None:
             raise ValueError("pass a torch.Generator, or u_sys and u_mult")
+        if isinstance(generator, (list, tuple)) and len(generator) != U:
+            raise ValueError(f"{len(generator)} generators for {U} units")
         return None, None
     u_sys = torch.as_tensor(u_sys, dtype=torch.float32, device=device)
     u_mult = torch.as_tensor(u_mult, dtype=torch.float32, device=device)
@@ -518,7 +525,9 @@ def run_online_combined_inference(
     ``fold_in(key, t)``), else drawn from ``generator``: fresh ones for each
     unit, or with ``shared_draws`` the same for every unit, those a one-unit
     run on the same generator takes (JAX's batched theta stage gives every
-    chromosome the same key).
+    chromosome the same key). ``generator`` may also be a list of U
+    generators: unit u then draws what a one-unit run on generator u draws
+    (independent replicates, each equal to its run alone).
 
     adam_init: (adam_m (U, D) or (D,), adam_v likewise, adam_iter (U,) or a
     count): the ADAM state to start from (the blocked theta stage continues

@@ -1,10 +1,11 @@
-"""The ``estimate_parameters_and_regimes`` verb.
+"""The ``estimate_parameters_and_regimes`` and ``simulate_data`` verbs, and
+replicate estimates of the log-normalising constant.
 
 Counterpart of hygeia_tpu/single_group/runner.py (``default_p``,
-``estimate_parameters_and_regimes``): the same flags, input files, output
-files, headers and column names, driving the port's engine on one device
-with one unit. ``simulate_data`` and ``approximate_log_normalizing_constant``
-are not ported yet (ROADMAP.md, items 13 and 15).
+``estimate_parameters_and_regimes``, ``simulate_data``,
+``approximate_log_normalizing_constant``): the same flags, input files,
+output files, headers and column names, driving the port's engine and
+simulator on one device.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 
 from hygeia_tpu_torch.ops.emissions import emission_log_prob_table
 from hygeia_tpu_torch.single_group.engine import EngineConfig, run_online_combined_inference
+from hygeia_tpu_torch.single_group import simulate as sg_simulate
 from hygeia_tpu_torch.single_group.model import make_model, parameters_to_theta, theta_to_parameters
 from hygeia_tpu_torch.utils import io as hio
 
@@ -128,3 +130,98 @@ def estimate_parameters_and_regimes(
         hio.write_headed_column(kappa_csv_file, final.get("kappa", kappa), "kappa")
         hio.write_theta(theta_file, trace[-1])
     return res
+
+
+def simulate_data(
+    *,
+    regimes_csv_file,
+    n_methylated_reads_csv_file,
+    genomic_positions_csv_file,
+    n_total_reads_csv_file,
+    device,
+    mu=DEFAULT_MU,
+    sigma=DEFAULT_SIGMA,
+    p=None,
+    omega=DEFAULT_OMEGA,
+    kappa=(2.0,) * 6,
+    u=2,
+    n_samples=2,
+    n_cpg_sites=1000,
+    lambda_reads=20.0,
+    rng_seed=0,
+):
+    """Simulate a single-group chromosome on ``device`` and write the JAX
+    verb's headed CSVs (regimes, positions 1..T, total and methylated
+    reads, samples as rows). The depths are the JAX verb's bit for bit
+    (``np.random.default_rng(rng_seed).poisson``); the chain and the counts
+    come from a ``torch.Generator`` on ``device`` seeded with ``rng_seed``,
+    with float32 tables, as the JAX CLI builds them. Returns the
+    SingleGroupSimulation (tensors on ``device``)."""
+    device = torch.device(device)
+    mu = np.asarray(mu, np.float64)
+    R = len(mu)
+    model = make_model(mu, sigma, u, np.asarray(kappa), d_max=4096, device=device)
+    p_mat = default_p(R) if p is None else np.asarray(p, np.float64)
+    theta = parameters_to_theta(p_mat, np.asarray(omega), np.asarray(kappa))
+
+    rng = np.random.default_rng(rng_seed)
+    n_total = rng.poisson(lambda_reads, size=(n_cpg_sites, n_samples)).astype(np.float64)
+    sim = sg_simulate.simulate(
+        model, torch.as_tensor(theta, dtype=torch.float32, device=device), n_total,
+        generator=torch.Generator(device=device).manual_seed(int(rng_seed)),
+    )
+    positions = np.arange(1, n_cpg_sites + 1)
+
+    hio.write_headed_column(regimes_csv_file, sim.r.cpu().numpy(), "regime")
+    hio.write_headed_column(genomic_positions_csv_file, positions, "genomic_positions")
+    hio.write_headed_matrix(n_total_reads_csv_file, n_total.T, "sample")
+    hio.write_headed_matrix(n_methylated_reads_csv_file, sim.n_methylated.cpu().numpy().T, "sample")
+    return sim
+
+
+def replicate_generators(device, rng_seed, n_replicates):
+    """One generator a replicate on ``device``, seeded from
+    ``np.random.SeedSequence(rng_seed)``'s independent children."""
+    children = np.random.SeedSequence(int(rng_seed)).spawn(int(n_replicates))
+    return [torch.Generator(device=device).manual_seed(int(c.generate_state(1, np.uint32)[0]))
+            for c in children]
+
+
+def approximate_log_normalizing_constant(
+    *,
+    n_replicates,
+    n_methylated_reads,
+    n_total_reads,
+    device,
+    mu=DEFAULT_MU,
+    sigma=DEFAULT_SIGMA,
+    u=2,
+    kappa=(2.0,) * 6,
+    omega=DEFAULT_OMEGA,
+    p=None,
+    n_particles=250,
+    rng_seed=0,
+    weight_dtype=torch.float32,
+):
+    """Independent replicate estimates (n_replicates,) of the
+    log-normalising constant of (T, S) counts at fixed theta.
+
+    The JAX package vmaps one engine run over replicate keys; here the
+    replicates are the U units of one engine call on ``device``, with both
+    estimates off: one resampler launch a site serves all of them. Replicate
+    i draws from its own generator (``replicate_generators``), so its
+    estimate is that of a one-unit run on that generator."""
+    device = torch.device(device)
+    mu = np.asarray(mu, np.float64)
+    R = len(mu)
+    model = make_model(mu, sigma, u, np.asarray(kappa), d_max=4096, dtype=weight_dtype, device=device)
+    p_mat = default_p(R) if p is None else np.asarray(p, np.float64)
+    theta = parameters_to_theta(p_mat, np.asarray(omega), np.asarray(kappa))
+    E = emission_log_prob_table(np.asarray(n_methylated_reads), np.asarray(n_total_reads),
+                                model.alpha, model.beta, dtype=weight_dtype)
+    cfg = EngineConfig(n_particles_max=n_particles, estimate_regimes=False, estimate_parameters=False)
+    res = run_online_combined_inference(
+        model, theta, E, cfg, n_units=int(n_replicates),
+        generator=replicate_generators(device, rng_seed, n_replicates), weight_dtype=weight_dtype,
+    )
+    return res.log_normalizing_constant.cpu().numpy()

@@ -8,10 +8,18 @@ consumed by the backward pass; with ``streaming_blocks=W`` the chunk runs
 through two_group/streaming.py, which holds one W-site block. The seeds of
 a chunk run together as the leading unit axis U. Output files, names and
 dtypes are the JAX runner's.
+
+``trace_dir`` profiles each chunk of seeds with ``torch.profiler`` (CPU
+activity, and CUDA activity on the card) and writes one Chrome-format
+trace a chunk there (``tensorboard_trace_handler``; the JAX runner writes
+its profiler's TensorBoard profile). On the monolithic path the filter and
+the backward pass run inside the ranges ``infer.filter`` and
+``infer.backward``, which the trace shows. Tracing changes no output.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -95,8 +103,16 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _not_ported(flag, item):
-    raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md, item {item})")
+def _profile(trace_dir, device):
+    """A torch.profiler context writing one trace into ``trace_dir`` when it
+    exits (CPU activity, plus CUDA activity on a CUDA device), or a null
+    context when no ``trace_dir`` is given."""
+    if not trace_dir:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    return profile(activities=activities, on_trace_ready=tensorboard_trace_handler(str(trace_dir)))
 
 
 def _make_params(mu, sigma, p_softmax, omega_logit_control, omega_case, merge_log_prob,
@@ -182,7 +198,7 @@ def _write_seed_files(path, flags, s, log_norm, times, times_backward):
 
 
 def _run_marginal_m(path, seeds, seeds_per_call, params, E_c, E_k, M, N, ret, epsilon, window,
-                    all_log_norm, times, device):
+                    all_log_norm, times, device, trace_dir=None):
     """The marginal filter for one particle budget M, chunk by chunk of
     seeds: one site loop a chunk; writes each seed's split and regime
     probabilities (the npz names and shapes of the backward-simulation
@@ -191,15 +207,16 @@ def _run_marginal_m(path, seeds, seeds_per_call, params, E_c, E_k, M, N, ret, ep
 
     for c0 in range(0, len(seeds), seeds_per_call):
         chunk = seeds[c0 : c0 + seeds_per_call]
-        _sync(device)
-        t0 = time.perf_counter()
-        res = run_marginal_filter(params, E_c, E_k, M, n_units=len(chunk),
-                                  generator=_generator(device, chunk, 0), epsilon=epsilon,
-                                  smoothing_window=window)
-        fn = res.functionals.cpu().numpy()
-        log_z, spill = res.log_normalizing_constant.cpu().numpy(), res.spill_count.cpu().numpy()
-        degen = res.degenerate_steps.cpu().numpy()
-        elapsed = time.perf_counter() - t0
+        with _profile(trace_dir, device):
+            _sync(device)
+            t0 = time.perf_counter()
+            res = run_marginal_filter(params, E_c, E_k, M, n_units=len(chunk),
+                                      generator=_generator(device, chunk, 0), epsilon=epsilon,
+                                      smoothing_window=window)
+            fn = res.functionals.cpu().numpy()
+            log_z, spill = res.log_normalizing_constant.cpu().numpy(), res.spill_count.cpu().numpy()
+            degen = res.degenerate_steps.cpu().numpy()
+            elapsed = time.perf_counter() - t0
         for i, s in enumerate(chunk):
             _report_degenerate(f"seed {s}", degen[i])
             times[s][N] = elapsed / len(chunk)
@@ -216,6 +233,45 @@ def _report_degenerate(label, d):
         print(f"WARNING: {label}: {int(d)} degenerate filter steps")
     else:
         print(f"{label}: degenerate_steps=0")
+
+
+def _infer_chunk(params, E_c, E_k, M, B, R, chunk, device, streaming_blocks, timings):
+    """Filter and backward simulation of one chunk of seeds as U units:
+    (logZ (U,), trajectories (U, T, B, 5), split (U, T), regime (U, T, 2R),
+    degenerate steps (U,), filter and backward seconds a seed), as numpy."""
+    _sync(device)
+    t0 = time.perf_counter()
+    if streaming_blocks:
+        tim = {}
+        traj, log_z, degen = streamed_inference(
+            params, E_c, E_k, M, B, n_units=len(chunk),
+            generator=_generator(device, chunk, 0),
+            backward_generator=_generator(device, chunk, 1),
+            block_size=int(streaming_blocks), timings=tim,
+        )
+        if timings is not None:
+            for k, v in tim.items():
+                timings.setdefault(k, []).append(v)
+        log_z, degen = log_z.cpu().numpy(), degen.cpu().numpy()
+        split, regime = _functionals(traj, R, device)
+        # One wall for both sweeps; the backward file records 0, as the JAX
+        # runner's streamed path does.
+        return log_z, traj, split, regime, degen, (time.perf_counter() - t0) / len(chunk), 0.0
+    with torch.profiler.record_function("infer.filter"):
+        res = run_filter(params, E_c, E_k, M, n_units=len(chunk), generator=_generator(device, chunk, 0))
+        _sync(device)
+    t1 = time.perf_counter()
+    with torch.profiler.record_function("infer.backward"):
+        traj = backward_simulation(params, res.log_weights, res.particles, B,
+                                   generator=_generator(device, chunk, 1))
+        split, regime = smoothing_functionals(traj, R)
+        _sync(device)
+    t2 = time.perf_counter()
+    log_z = res.log_normalizing_constant.cpu().numpy()
+    degen = res.degenerate_steps.cpu().numpy()
+    del res  # frees the chunk's (U, T, N) history
+    traj, split, regime = traj.cpu().numpy(), split.cpu().numpy(), regime.cpu().numpy()
+    return log_z, traj, split, regime, degen, (t1 - t0) / len(chunk), (t2 - t1) / len(chunk)
 
 
 def infer_segment(
@@ -272,11 +328,12 @@ def infer_segment(
     optimal_regime_probs_{N}_{s}), no trajectories, with marginal_epsilon
     and marginal_window (pending times a unit holds).
 
+    trace_dir: a ``torch.profiler`` trace of each chunk of seeds is written
+    there, in every mode (monolithic, streamed, robust, marginal).
+
     multinomial is recorded in the flags files only: as in hygeia_tpu, the
     INFER filter always takes the optimal resampler (whose fallback is
     multinomial)."""
-    if trace_dir:
-        _not_ported("--trace_dir", "16 (tracing)")
     device = torch.device(device)
     mu = np.asarray(mu, np.float64)
     R = len(mu)
@@ -341,48 +398,15 @@ def infer_segment(
             seeds_per_call = min(seeds_per_call, max(1, int(max_seeds_per_call)))
         if marginal:
             _run_marginal_m(path, seeds, seeds_per_call, params, E_c, E_k, M, N, ret, marginal_epsilon,
-                            marginal_window, all_log_norm, times, device)
+                            marginal_window, all_log_norm, times, device, trace_dir)
             continue
 
         outs = {}
         for c0 in range(0, len(seeds), seeds_per_call):
             chunk = seeds[c0 : c0 + seeds_per_call]
-            _sync(device)
-            t0 = time.perf_counter()
-            if streaming_blocks:
-                tim = {}
-                traj, log_z, degen = streamed_inference(
-                    params, E_c, E_k, M, B, n_units=len(chunk),
-                    generator=_generator(device, chunk, 0),
-                    backward_generator=_generator(device, chunk, 1),
-                    block_size=int(streaming_blocks), timings=tim,
-                )
-                if timings is not None:
-                    for k, v in tim.items():
-                        timings.setdefault(k, []).append(v)
-                log_z, degen = log_z.cpu().numpy(), degen.cpu().numpy()
-                split, regime = _functionals(traj, R, device)
-                # One wall for both sweeps; the backward file records 0, as
-                # the JAX runner's streamed path does.
-                t_f, t_b = (time.perf_counter() - t0) / len(chunk), 0.0
-            else:
-                res = run_filter(
-                    params, E_c, E_k, M, n_units=len(chunk), generator=_generator(device, chunk, 0)
-                )
-                _sync(device)
-                t1 = time.perf_counter()
-                traj = backward_simulation(
-                    params, res.log_weights, res.particles, B,
-                    generator=_generator(device, chunk, 1),
-                )
-                split, regime = smoothing_functionals(traj, R)
-                _sync(device)
-                t2 = time.perf_counter()
-                log_z = res.log_normalizing_constant.cpu().numpy()
-                degen = res.degenerate_steps.cpu().numpy()
-                del res  # frees the chunk's (U, T, N) history
-                traj, split, regime = traj.cpu().numpy(), split.cpu().numpy(), regime.cpu().numpy()
-                t_f, t_b = (t1 - t0) / len(chunk), (t2 - t1) / len(chunk)
+            with _profile(trace_dir, device):
+                log_z, traj, split, regime, degen, t_f, t_b = _infer_chunk(
+                    params, E_c, E_k, M, B, R, chunk, device, streaming_blocks, timings)
             for i, s in enumerate(chunk):
                 _report_degenerate(f"seed {s}", degen[i])
                 outs[s] = (float(log_z[i]), traj[i], split[i], regime[i], t_f, t_b)

@@ -447,3 +447,90 @@ def test_marginal_filter_on_the_card_matches_the_cpu(device):
     assert bool(b.valid.all()) and int(b.degenerate_steps.sum()) == 0
     torch.testing.assert_close(b.functionals.cpu(), a.functionals, atol=0.02, rtol=0)
     torch.testing.assert_close(b.log_normalizing_constant.cpu(), a.log_normalizing_constant, rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("R", [6, 5])
+def test_two_group_simulator_on_the_card_equals_the_cpu(device, R):
+    """The chain with the same injected noise on both devices: the same
+    states (the float32 hazard tables are bit-identical and the jumps and
+    Gumbel-max draws are exact comparisons); the counts on the card within
+    their depths."""
+    from hygeia_tpu_torch.two_group import simulate as sim
+    from hygeia_tpu_torch.two_group.model import make_params
+
+    T = 600
+    noise = sim.draw_chain_noise(T, R, generator=torch.Generator().manual_seed(R), device="cpu")
+    states = []
+    for dev in (torch.device("cpu"), device):
+        params = make_params(
+            mu=[0.95, 0.05, 0.80, 0.20, 0.50, 0.50][:R], sigma=[0.05, 0.05, 0.1, 0.1, 0.1, 0.2886751][:R],
+            p_softmax_control=np.random.default_rng(1).normal(size=(R, R)), omega_logit_control=np.full(R, 1.2),
+            omega_case=0.8, kappa_control=np.full(R, 2.0), kappa_case=np.full(R, 2.0), merge_log_prob=np.log(0.1),
+            split_prob=0.01, minimum_duration=3, d_max=T + 1, device=dev,
+        )
+        states.append(sim.simulate_chain(params, noise).cpu())
+        n = torch.full((T, 2), 20.0, device=dev)
+        res = sim.simulate(params, n, n, generator=torch.Generator(device=dev).manual_seed(0))
+        assert res.obs_control.device == dev and bool(((res.obs_case >= 0) & (res.obs_case <= 20)).all())
+    assert torch.equal(states[0], states[1])
+    assert 0 < float((states[0][:, 0] == 0).float().mean()) < 1
+
+
+def test_single_group_simulator_on_the_card_equals_the_cpu(device):
+    from hygeia_tpu_torch.single_group import simulate as sim
+    from hygeia_tpu_torch.single_group.model import make_model, parameters_to_theta
+    from hygeia_tpu_torch.single_group.runner import DEFAULT_MU, DEFAULT_OMEGA, DEFAULT_SIGMA, default_p
+
+    T, R = 800, 6
+    noise = sim.draw_chain_noise(T, R, generator=torch.Generator().manual_seed(3), device="cpu")
+    theta = parameters_to_theta(default_p(R), np.asarray(DEFAULT_OMEGA), np.full(R, 2.0))
+    out = []
+    for dev in (torch.device("cpu"), device):
+        model = make_model(np.asarray(DEFAULT_MU), DEFAULT_SIGMA, 2, np.full(R, 2.0), d_max=4096, device=dev)
+        d, r = sim.simulate_chain(model, torch.as_tensor(theta, dtype=torch.float32, device=dev), noise)
+        out.append((d.cpu(), r.cpu()))
+    assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
+
+
+def test_discrete_normal_on_the_card_equals_the_cpu(device):
+    from hygeia_tpu_torch.ops import discrete_normal as dn
+
+    xs = torch.arange(-40, 50, dtype=torch.float64)
+    for name in ("log_density", "grad_sd_log_density", "log_density_left_truncated",
+                 "grad_var_log_density_truncated", "grad_mean_log_density_right_truncated"):
+        f = getattr(dn, name)
+        extra = (1,) if "left" in name else (6,) if "right" in name else (0, 8) if "truncated" in name else ()
+        a = f(xs, *extra, 2.3, 1.7).numpy()
+        b = f(xs.to(device), *extra, 2.3, 1.7).cpu().numpy()
+        same = (a == b) | (np.isnan(a) & np.isnan(b))
+        assert np.allclose(a[~same], b[~same], rtol=1e-12, atol=0), name
+
+
+def test_infer_trace_on_the_card_holds_cuda_kernels(device, tmp_path):
+    """infer_segment with trace_dir on the card: one Chrome trace with CUDA
+    kernel events, K1's among them, and the outputs of the untraced run."""
+    import json
+
+    from hygeia_tpu_torch.two_group.runner import infer_segment
+    from hygeia_tpu_torch.utils import io as hio
+
+    rng = np.random.default_rng(2)
+    T = 120
+    data, sg = tmp_path / "data", tmp_path / "sg"
+    n = rng.poisson(20, size=(T, 2))
+    hio.write_count_matrix(data / "positions_c.txt.gz", np.arange(1, T + 1) * 10)
+    for g, p in (("control", 0.8), ("case", 0.3)):
+        hio.write_count_matrix(data / f"n_total_reads_{g}_c.txt.gz", n)
+        hio.write_count_matrix(data / f"n_methylated_reads_{g}_c.txt.gz", rng.binomial(n, p))
+    hio.write_theta(sg / "theta_c.csv.gz", rng.normal(size=36))
+    kw = dict(data_dir=str(data), single_group_dir=str(sg), chrom="c", device=device, segment_size=100,
+              buffer_size=20, num_resampled_particles=(10,))
+    before = cr.KERNEL.launches
+    a = infer_segment(results_dir=str(tmp_path / "traced"), trace_dir=str(tmp_path / "trace"), **kw)
+    assert cr.KERNEL.launches - before == T - 1
+    b = infer_segment(results_dir=str(tmp_path / "plain"), **kw)
+    assert a == b
+    (trace,) = (tmp_path / "trace").glob("*.pt.trace.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert kernels and any("optimal_resampling" in e["name"] for e in kernels)

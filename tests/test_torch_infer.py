@@ -210,17 +210,38 @@ def test_cli_device_cuda_raises_without_cuda(runs, tmp_path):
     assert not any(tmp_path.iterdir())  # raised before writing anything
 
 
-# --streaming_blocks, --robust and --marginal are ported; --trace_dir, with
-# them or alone, still raises.
-@pytest.mark.parametrize("flag", [["--robust", "--marginal", "--trace_dir", "x"], ["--marginal", "--trace_dir", "x"],
-                                  ["--streaming_blocks", "64", "--robust", "--trace_dir", "x"],
-                                  ["--trace_dir", "x"]])
-def test_unported_options_raise(runs, tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_cli.main([
+# --trace_dir in each of the four modes: a trace appears and parses, and
+# every output file equals the one of the same run without it, bit for bit.
+@pytest.mark.parametrize("flag", [["--robust", "--marginal"], ["--marginal"], ["--streaming_blocks", "64", "--robust"],
+                                  []])
+def test_trace_dir_writes_a_trace_and_changes_no_output(runs, tmp_path, flag):
+    import json
+
+    def infer(out, extra):
+        return torch_cli.main([
             "infer", "--data_dir", str(runs["data"]), "--single_group_dir", str(runs["sg"]),
-            "--results_dir", str(tmp_path), "--chrom", "t", "--device", "cpu", *flag,
+            "--results_dir", str(out), "--chrom", "t", "--segment_size", "30", "--buffer_size", "5",
+            "--num_resampled_particles", "4", "--num_samples_backward", "8", "--device", "cpu", *flag, *extra,
         ])
+
+    trace_dir = tmp_path / "trace"
+    assert infer(tmp_path / "plain", []) == infer(tmp_path / "traced", ["--trace_dir", str(trace_dir)])
+    traces = sorted(trace_dir.glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert len(events) > 100 and ("infer.filter" in names) == (flag == [])
+    plain, traced = tmp_path / "plain" / "chrom_t_0", tmp_path / "traced" / "chrom_t_0"
+    files = sorted(os.listdir(plain))
+    assert files == sorted(os.listdir(traced)) and any(f.endswith(".npz") for f in files)
+    for name in files:
+        if name.endswith(".npz"):
+            a, b = np.load(plain / name)["arr_0"], np.load(traced / name)["arr_0"]
+            assert a.dtype == b.dtype and np.array_equal(a, b), name
+        elif name.endswith(".gz"):  # the gzip header holds a time stamp
+            assert gzip.decompress((plain / name).read_bytes()) == gzip.decompress((traced / name).read_bytes())
+        elif not name.startswith("optimal_time"):
+            assert (plain / name).read_bytes() == (traced / name).read_bytes(), name
 
 
 def test_headed_csv_io_reads_and_writes_like_pandas(tmp_path):

@@ -153,18 +153,19 @@ def test_batched_theta_stage_equals_per_chromosome_runs(beds, tmp_path):
             assert (tio._read_text(tmp_path / "s" / c / name) == tio._read_text(tmp_path / "b" / c / name)), name
 
 
-# The single-group run and preprocess --format gembs are ported; --mesh and
-# --bucket_dir still raise, with and without --two_group.
+# --bucket_dir is ported (tests/test_torch_staging.py); the meshed INFER
+# still raises, naming its ROADMAP item, on every mesh shape and boundary.
 @pytest.mark.parametrize("argv", [
     ["run", "--two_group", "--mesh", "2x1"],
-    ["run", "--two_group", "--bucket_dir", "x"],
-    ["run", "--sample_sheet", "x.csv", "--bucket_dir", "x"],
-    ["run", "--sample_sheet", "x.csv", "--stub_run", "--bucket_dir", "x"],
+    ["run", "--two_group", "--mesh", "1x1"],
+    ["run", "--two_group", "--mesh", "2x1", "--boundary", "exchange"],
+    ["run", "--two_group", "--mesh", "1x2", "--bucket_dir", "x"],
 ])
 def test_unported_options_raise(tmp_path, argv):
     extra = ["--output_dir", str(tmp_path / "o"), "--chroms", "3", "--device", "cpu"] if argv[0] == "run" else []
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
         torch_cli.main([*argv, *extra])
+    assert not (tmp_path / "o").exists()
 
 
 def test_run_device_cuda_raises_without_cuda(beds, tmp_path):
