@@ -7,7 +7,9 @@
         --chrom2_sites 3000 --robust_sites 600 --robust_buffer 60 --theta_block 1024 \
         --theta_halo 128 --theta_warmup 1024 --pipeline_sites 2600 --sg_pipeline_sites 1500 \
         --marginal_sites 1500 --marginal_buffer 150 --simulate_data_sites 1000 \
-        --trace_sites 100 --trace_buffer 10   # a quick look
+        --trace_sites 100 --trace_buffer 10 --mesh_sites 2000 --mesh_segment 500 --mesh_buffer 50 \
+        --world2_sites 2400 --world2_segment 600 --world2_buffer 60 \
+        --mesh_run_batch 700 --mesh_run_buffer 70   # a quick look
 
 Phases, each of which raises (exit code non-zero) when it fails:
 
@@ -153,7 +155,34 @@ Phases, each of which raises (exit code non-zero) when it fails:
    kernels a site of the filter and of the backward pass (the
    ``infer.filter`` and ``infer.backward`` ranges), K1's kernels equal to
    the wrapper's count, the device's busy share of the traced window and
-   its busy time against the untraced run's filter and backward seconds.
+   its busy time against the untraced run's filter and backward seconds;
+18. ``runner.infer_chromosome_meshed`` at world 1 on a fifth seeded
+   chromosome of 8,000 CpGs with planted DMRs (``--mesh_sites``), mesh 4x2
+   on the one card (8 units in one chunk), segment 2,000 + halo 200 (cut
+   from 100,000 + 5,000), halo then exchange: K1's launches equal
+   ``sharded.expected_launches`` ((seg + 2 buf) - 1 halo; (W - 1) + window
+   exchange), logZ finite, no degenerate step, the split probability
+   higher inside the DMRs; the seconds of tables, filter, backward and
+   messages, the peak memory; the rho table's build at d_max = T + 1,
+   65,537 and 2,300,001;
+19. two ranks on the one card (torch.multiprocessing spawn, gloo), mesh
+   4x2, halo and exchange through ``infer_chromosome_meshed`` on a sixth
+   chromosome of 2,400 CpGs (make_dataset's planted DMRs need more than
+   ~2,300), segment 600 + 60 (a cut depth): every npz array and logZ file
+   equal bit for bit to a world-1 run in this process with chunks of a
+   rank's units, each rank's launches one chunk's formula, the messages
+   world 1's, one torch.distributed call each;
+20. ``hygeia_tpu_torch.cli run --two_group --mesh 4x2 --boundary exchange``
+   on phase 12's preprocessed chromosome with phase 12's theta stage copied
+   in, batches of 3,300 + 330 (cut for time; ``--mesh_run_batch``): INFER[mesh],
+   aggregate and DMPs run, the sequential run's file set per batch, one
+   chunk's launches, weighted DMPs at least half in planted windows.
+
+Phase 3b (after 3): the probe kernel (``csrc/probe.cu``, 2*x + max(x) in
+one block; replaces ``.round4/pallas_smoke.py:11``) through its wrapper on
+arange(1024).reshape(8, 128) and a seeded random block, equal to
+``2 * x + x.max()`` bit for bit, then timed. Phase 2 builds every
+``csrc/*.cu``, one nvcc a source, all started together.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc;
@@ -224,6 +253,25 @@ def _normalised_gumbel(rng, U, N, scale, dead_frac, device):
     lw = np.where(rng.uniform(size=(U, N)) < dead_frac, -np.inf, lw).astype(np.float32)
     t = torch.from_numpy(lw).to(device)
     return (t - torch.logsumexp(t, dim=-1, keepdim=True)).contiguous()
+
+
+def _events_ms(device, fn, n, behind_spin):
+    """Milliseconds per call of fn by CUDA events over n calls. Behind a
+    spin on the card the calls queue up first, so the events time the card
+    and not the host that enqueues."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if behind_spin:
+        torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / n
 
 
 def kernel_phase(device, seed=0):
@@ -322,22 +370,6 @@ def kernel_phase(device, seed=0):
         max_err = max(max_err, compare(lw, M_big, f"M=150 trial {trial}")[1])
     print(f"kernel vs plain: 4 Gumbel trials U=4 N={N_big} M={M_big}: equal")
 
-    def events_ms(fn, n, behind_spin):
-        """Milliseconds per call of fn by CUDA events over n calls. Behind a
-        spin on the card the calls queue up first, so the events time the
-        card and not the host that enqueues."""
-        for _ in range(10):
-            fn()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        if behind_spin:
-            torch.cuda._sleep(20_000_000)
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        torch.cuda.synchronize(device)
-        return start.elapsed_time(end) / n
-
     def host_us(fn, n=1000):
         """Host microseconds per call of fn, no synchronisation in between."""
         for _ in range(20):
@@ -374,16 +406,16 @@ def kernel_phase(device, seed=0):
         def raw():
             check(KERNEL.launch(*raw_args) == 0, "raw launch refused")
 
-        device_ms = min(events_ms(raw, 100, True) for _ in range(3))
+        device_ms = min(_events_ms(device, raw, 100, True) for _ in range(3))
         enqueue_us = min(host_us(lambda: optimal_resampling_cuda(lw, M, us, um)) for _ in range(3))
-        library_ms = min(events_ms(lambda: torch.topk(lw, M + 1), 100, True) for _ in range(3))
+        library_ms = min(_events_ms(device, lambda: torch.topk(lw, M + 1), 100, True) for _ in range(3))
         n_bytes = units * (4 * N + 4 + 4 * M + 12 * M + 5)
         times = {}
         for name, fn in (("plain", plain.optimal_finite_state_resampling),
                          ("kernel", optimal_resampling_cuda),
                          ("kernel2", optimal_resampling_cuda),
                          ("plain2", plain.optimal_finite_state_resampling)):
-            times[name] = events_ms(lambda: fn(lw, M, us, um), 100, False)
+            times[name] = _events_ms(device, lambda: fn(lw, M, us, um), 100, False)
         out = {
             "ms": min(times["kernel"], times["kernel2"]),
             "plain_ms": min(times["plain"], times["plain2"]),
@@ -402,7 +434,7 @@ def kernel_phase(device, seed=0):
     def empty():
         check(KERNEL.lib.hygeia_empty_launch(*empty_args) == 0, "empty launch refused")
 
-    floor = {"launch_floor_ms": min(events_ms(empty, 1000, True) for _ in range(3)),
+    floor = {"launch_floor_ms": min(_events_ms(device, empty, 1000, True) for _ in range(3)),
              "launch_floor_host_us": min(host_us(empty) for _ in range(3))}
     print(f"an empty one-block launch through the same C interface: {1e3 * floor['launch_floor_ms']:.2f} us "
           f"on the card, {floor['launch_floor_host_us']:.2f} us of host time")
@@ -1173,7 +1205,8 @@ def pipeline_phase(device, root, n_sites, batch_size=6000, buffer_size=600, seed
           f"windows, recall {recall:.3f}; resumed run {wall2:.2f} s, no stage again; after deleting the tree, "
           f"restored from the bucket ({rows3[0][5]}) in {wall3:.2f} s, no stage again, launches={bucket_launches}, "
           f"DMP files equal")
-    return stats, launches, bucket_launches
+    ctx = {"out": out, "cpg": cpg, "controls": controls, "cases": cases, "dmr": dmr, "pos0": pos0}
+    return stats, launches, bucket_launches, ctx
 
 
 def sg_pipeline_phase(device, root, n_sites):
@@ -1732,6 +1765,332 @@ def trace_phase(device, root, data_dir, sg_dir, segment_size, buffer_size, seed=
           f"{wall_traced:.2f} s, untraced {wall_plain:.2f} s")
     return stats, launches
 
+# ----------------------------------------------------------------- probe ----
+
+def probe_phase(device, seed=0):
+    """The probe kernel (csrc/probe.cu, 2*x + max(x) in one block) through
+    its wrapper on .round4/pallas_smoke.py's arange(1024).reshape(8, 128)
+    and on a seeded random block: equal to 2 * x + x.max() bit for bit.
+    Then timed: the card's time a launch (raw launches behind a spin, best
+    of 3), per call through the wrapper beside the plain version (CUDA
+    events, turns plain, kernel, kernel, plain), and its bound: 4 KiB read
+    and 4 KiB written at 3.35 TB/s (3 operations an element at 67 TFLOP/s
+    f32 take less). Returns (stats, launches of the checked calls)."""
+    import numpy as np
+    import torch
+    from hygeia_tpu_torch.ops.probe import PROBE, probe, probe_cuda, probe_plain
+
+    xs = {"arange": torch.arange(8 * 128, dtype=torch.float32, device=device).reshape(8, 128),
+          "random": torch.from_numpy((np.random.default_rng(seed).standard_normal((8, 128)) * 10)
+                                     .astype(np.float32)).to(device)}
+    PROBE.launches = 0
+    outs = {k: probe(x) for k, x in xs.items()}
+    _sync(device)
+    launches = PROBE.launches
+    check(launches == len(xs), f"probe: {launches} launches for {len(xs)} calls")
+    max_err = 0.0
+    for k, x in xs.items():
+        want = probe_plain(x)
+        max_err = max(max_err, float((outs[k] - want).abs().max()))
+        check(outs[k].dtype == want.dtype and torch.equal(outs[k], want),
+              f"probe ({k}): {int((outs[k] != want).sum())} entries differ from 2 * x + x.max()")
+    x = xs["random"]
+    out = torch.empty_like(x)
+    raw = (x.data_ptr(), out.data_ptr(), x.numel(), torch.cuda.current_stream(device).cuda_stream)
+
+    def launch():
+        check(PROBE.lib.hygeia_probe(*raw) == 0, "probe: raw launch refused")
+
+    device_ms = min(_events_ms(device, launch, 1000, True) for _ in range(3))
+    turns = {}
+    for name, fn in (("plain", probe_plain), ("kernel", probe_cuda), ("kernel2", probe_cuda), ("plain2", probe_plain)):
+        turns[name] = _events_ms(device, lambda: fn(x), 200, False)
+    n_bytes = 2 * 4 * x.numel()
+    stats = {"ms": min(turns["kernel"], turns["kernel2"]), "plain_ms": min(turns["plain"], turns["plain2"]),
+             "device_ms": device_ms, "bytes": n_bytes, "bound_ms": 1e3 * n_bytes / 3.35e12,
+             "ops_bound_ms": 1e3 * 3 * x.numel() / 67e12, "bound_by": "bytes", "max_abs_err": max_err}
+    print(f"probe kernel: 2*x + max(x) on arange(1024).reshape(8, 128) and a random (8, 128) block equal to "
+          f"2 * x + x.max() bit for bit; {1e3 * device_ms:.2f} us a launch on the card; per call "
+          f"{stats['ms']:.4f} ms through the wrapper (plain {stats['plain_ms']:.4f} ms); bound "
+          f"{1e6 * stats['bound_ms']:.2f} ns ({n_bytes} bytes)")
+    return stats, launches
+
+
+# ---------------------------------------------------------------- meshed ----
+
+MESH_SHAPE = (4, 2)
+MESH_SEEDS = (0, 1)
+# Further depths of the rho build's timing (the meshed runner's d_max is
+# T + 1: 2,300,001 for a 2.3M-CpG chromosome).
+RHO_D_MAX = (65_537, 2_300_001)
+
+
+def _mesh_split(results, chrom, n_sites, segment_size, seeds, N):
+    """Per seed, the (T,) split probabilities of a meshed run's batches
+    (their segment rows, in order), and each batch's logZ."""
+    import numpy as np
+
+    n_batches = 1 + n_sites // segment_size
+    split = {}
+    log_z = {}
+    for s in seeds:
+        split[s] = np.concatenate([
+            np.load(os.path.join(results, f"chrom_{chrom}_{b}", f"optimal_split_probs_{N}_{s}.npz"))["arr_0"]
+            for b in range(n_batches)])
+        for b in range(n_batches):
+            with open(os.path.join(results, f"chrom_{chrom}_{b}", f"log_normalizing_constants_optimal_{s}.txt")) as f:
+                log_z[(b, s)] = ast.literal_eval(f.read())[N]
+    return split, log_z
+
+
+def meshed_phase(device, root, n_sites, segment_size, buffer_size, seed=7):
+    """runner.infer_chromosome_meshed at world 1 on a fifth seeded
+    chromosome "5" (planted DMRs, phase 6's theta), mesh 4x2 on the one card
+    (8 units), halo then exchange: all 8 units in one chunk; K1 launched as
+    sharded.expected_launches says; every logZ finite; no degenerate step;
+    the split probability higher inside the DMRs than outside; the seconds
+    of tables, filter, backward and messages and the peak memory. Then the
+    rho table's build (d_max = T + 1, as the meshed runner builds it) timed
+    at this T and at RHO_D_MAX. Returns (stats, {boundary: launches})."""
+    import numpy as np
+    import torch
+    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
+    from hygeia_tpu_torch.parallel.sharded import MESSAGES, expected_launches
+    from hygeia_tpu_torch.two_group.runner import _make_params, infer_chromosome_meshed
+    from hygeia_tpu_torch.utils import io as hio
+
+    data_dir, sg_dir, dmr, _ = make_dataset(root, n_sites, seed=seed, chrom="5")
+    shutil.copy(os.path.join(sg_dir, "theta_1.csv.gz"), os.path.join(sg_dir, "theta_5.csv.gz"))
+    N = 50 * (2 * R + R * R)
+    n_blocks = -(-max(1, -(-n_sites // segment_size)) // MESH_SHAPE[0]) * MESH_SHAPE[0]
+    bpd = n_blocks // MESH_SHAPE[0]
+    stats, launches = {}, {}
+    for boundary in ("halo", "exchange"):
+        results = os.path.join(root, f"results_mesh_{boundary}")
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        KERNEL.launches = 0
+        tim = {}
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            infer_chromosome_meshed(data_dir=data_dir, single_group_dir=sg_dir, results_dir=results, chrom="5",
+                                    mesh_shape=MESH_SHAPE, device=device, boundary=boundary, seed=MESH_SEEDS,
+                                    segment_size=segment_size, buffer_size=buffer_size, timings=tim)
+        wall = time.perf_counter() - t0
+        launches[boundary] = KERNEL.launches
+        t = tim[N]
+        units = (n_blocks if boundary == "halo" else MESH_SHAPE[0]) * len(MESH_SEEDS)
+        check(t["chunks"] == [units], f"meshed {boundary}: chunks {t['chunks']}, expected all {units} units in one")
+        want = expected_launches(boundary, segment_size, buffer_size, bpd, 1)
+        check(launches[boundary] == want, f"meshed {boundary}: K1 launched {launches[boundary]} times, the formula "
+                                          f"gives {want}")
+        check(int(t["degenerate"].sum()) == 0, f"meshed {boundary}: {int(t['degenerate'].sum())} degenerate steps")
+        split, log_z = _mesh_split(results, "5", n_sites, segment_size, MESH_SEEDS, N)
+        check(all(math.isfinite(v) for v in log_z.values()), f"meshed {boundary}: logZ not finite")
+        sp = np.mean([split[s] for s in MESH_SEEDS], axis=0)
+        check(sp.shape == (n_sites,), f"meshed {boundary}: split probabilities of {sp.shape} sites")
+        in_dmr, out_dmr = float(sp[dmr].mean()), float(sp[~dmr].mean())
+        check(in_dmr > out_dmr, f"meshed {boundary}: split probability in DMRs {in_dmr:.3f} <= outside {out_dmr:.3f}")
+        stats[boundary] = {
+            "sites": n_sites, "units": units, "wall_s": wall,
+            **{k: t[k] for k in ("tables_s", "filter_s", "backward_s", "messages_s")},
+            "messages": MESSAGES.rounds, "distributed_calls": MESSAGES.calls,
+            "split_in_dmr": in_dmr, "split_outside": out_dmr,
+            "logZ": {f"{b},{s}": v for (b, s), v in log_z.items()},
+            "max_memory_allocated_bytes": (torch.cuda.max_memory_allocated(device)
+                                           if device.type == "cuda" else None),
+            "launches": launches[boundary],
+        }
+        print(f"meshed {boundary}: {n_sites} CpGs, mesh {MESH_SHAPE[0]}x{MESH_SHAPE[1]}, {units} units in one chunk, "
+              f"launches={launches[boundary]} (formula {want}); tables {t['tables_s']:.2f} s, filter "
+              f"{t['filter_s']:.2f} s, backward {t['backward_s']:.2f} s, messages {t['messages_s']:.4f} s "
+              f"({MESSAGES.rounds} messages), wall {wall:.2f} s; split prob in DMRs {in_dmr:.3f} vs outside "
+              f"{out_dmr:.3f}; max_memory_allocated {stats[boundary]['max_memory_allocated_bytes']}")
+    theta = hio.read_theta(os.path.join(sg_dir, "theta_5.csv.gz"))
+    p_softmax, omega_logit = hio.theta_file_to_p_softmax(theta, R)
+    rho_s = {}
+    for d_max in (n_sites + 1, *RHO_D_MAX):
+        _sync(device)
+        t0 = time.perf_counter()
+        _make_params(np.asarray(MU), SIGMA, p_softmax, omega_logit, 0.8, math.log(0.1), 0.01, 3, d_max, device)
+        _sync(device)
+        rho_s[d_max] = time.perf_counter() - t0
+    stats["rho_build_s"] = rho_s
+    print(f"meshed: the params' rho tables (d_max = T + 1) built in "
+          + ", ".join(f"{v:.3f} s at d_max {k}" for k, v in rho_s.items()))
+    return stats, launches
+
+
+def _world2_rank(rank, rendezvous, kw, out_dir, N, device_str):
+    """One of phase 19's two ranks (torch.multiprocessing.spawn's target):
+    gloo on the one card, both schemes through infer_chromosome_meshed;
+    writes its launches, messages and chunks to out_dir/rank{rank}.json."""
+    import torch
+    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
+    from hygeia_tpu_torch.parallel.launcher import initialize_distributed
+    from hygeia_tpu_torch.parallel.sharded import MESSAGES
+    from hygeia_tpu_torch.two_group.runner import infer_chromosome_meshed
+
+    device = torch.device(device_str)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    check(initialize_distributed(f"file://{rendezvous}", 2, rank, backend="gloo") == (rank, 2), "world 2: join")
+    rec = {}
+    for boundary in ("halo", "exchange"):
+        KERNEL.launches = 0
+        tim = {}
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            infer_chromosome_meshed(**kw, boundary=boundary, results_dir=os.path.join(out_dir, boundary),
+                                    device=device, timings=tim)
+        t = tim[N]
+        rec[boundary] = {"launches": KERNEL.launches, "messages": MESSAGES.rounds, "calls": MESSAGES.calls,
+                         "chunks": t["chunks"], "wall_s": time.perf_counter() - t0,
+                         **{k: t[k] for k in ("filter_s", "backward_s", "messages_s")}}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    torch.distributed.destroy_process_group()
+
+
+def world2_phase(device, root, n_sites, segment_size, buffer_size, seed=8):
+    """Two ranks on the one card (torch.multiprocessing spawn, gloo: NCCL
+    refuses two ranks on one GPU), mesh 4x2, halo and exchange, on a sixth
+    seeded chromosome "6" at a cut depth, against world 1 in this process
+    with chunks of a rank's units (on the card a batched reduction's order
+    depends on a chunk's units): every npz array and logZ file equal bit
+    for bit, each rank's K1 launches one chunk's formula, and the messages
+    world 1's, each one torch.distributed call. Returns (stats, launches of
+    both ranks)."""
+    import numpy as np
+    import torch.multiprocessing as mp
+    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
+    from hygeia_tpu_torch.parallel.sharded import MESSAGES, expected_launches
+    from hygeia_tpu_torch.two_group.runner import infer_chromosome_meshed
+
+    data_dir, sg_dir, _, _ = make_dataset(root, n_sites, seed=seed, chrom="6")
+    shutil.copy(os.path.join(sg_dir, "theta_1.csv.gz"), os.path.join(sg_dir, "theta_6.csv.gz"))
+    N = 50 * (2 * R + R * R)
+    n_blocks = -(-max(1, -(-n_sites // segment_size)) // MESH_SHAPE[0]) * MESH_SHAPE[0]
+    bpd = n_blocks // MESH_SHAPE[0]
+    kw = dict(data_dir=data_dir, single_group_dir=sg_dir, chrom="6", mesh_shape=MESH_SHAPE, seed=MESH_SEEDS,
+              segment_size=segment_size, buffer_size=buffer_size)
+    per_rank = {"halo": n_blocks * len(MESH_SEEDS) // 2, "exchange": MESH_SHAPE[0] * len(MESH_SEEDS) // 2}
+    ref = {}
+    for boundary in ("halo", "exchange"):
+        KERNEL.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            infer_chromosome_meshed(**kw, boundary=boundary, results_dir=os.path.join(root, "world1", boundary),
+                                    device=device, max_units_per_call=per_rank[boundary])
+        check(MESSAGES.calls == 0, "world 1 made torch.distributed calls")
+        ref[boundary] = {"messages": MESSAGES.rounds, "launches": KERNEL.launches, "wall_s": time.perf_counter() - t0}
+    out_dir = os.path.join(root, "world2")
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    mp.spawn(_world2_rank, args=(os.path.join(root, "world2_rendezvous"), kw, out_dir, N, str(device)), nprocs=2,
+             join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    launches = 0
+    for boundary in ("halo", "exchange"):
+        want = expected_launches(boundary, segment_size, buffer_size, bpd, 1)
+        for r, rec in enumerate(ranks):
+            got = rec[boundary]
+            check(got["chunks"] == [per_rank[boundary]], f"world 2 {boundary}: rank {r} chunks {got['chunks']}")
+            check(got["launches"] == want, f"world 2 {boundary}: rank {r} launched {got['launches']}, formula {want}")
+            launches += got["launches"]
+        got = ranks[0][boundary]
+        check(got["messages"] == ref[boundary]["messages"] == got["calls"],
+              f"world 2 {boundary}: {got['messages']} messages in {got['calls']} calls, world 1 "
+              f"{ref[boundary]['messages']}")
+        a_root, b_root = os.path.join(root, "world1", boundary), os.path.join(out_dir, boundary)
+        batches = sorted(os.listdir(a_root))
+        check(batches == sorted(os.listdir(b_root)), f"world 2 {boundary}: batch directories differ")
+        n_arrays = 0
+        for d in batches:
+            names = sorted(os.listdir(os.path.join(a_root, d)))
+            check(names == sorted(os.listdir(os.path.join(b_root, d))), f"world 2 {boundary}: {d}'s files differ")
+            for name in names:
+                pa, pb = os.path.join(a_root, d, name), os.path.join(b_root, d, name)
+                if name.endswith(".npz"):
+                    a, b = np.load(pa)["arr_0"], np.load(pb)["arr_0"]
+                    check(a.dtype == b.dtype and np.array_equal(a, b), f"world 2 {boundary}: {d}/{name} differs")
+                    n_arrays += 1
+                elif name.startswith("log_normalizing"):
+                    check(open(pa).read() == open(pb).read(), f"world 2 {boundary}: {d}/{name} differs")
+        ref[boundary]["arrays_equal"] = n_arrays
+    stats = {"sites": n_sites, "segment_size": segment_size, "buffer_size": buffer_size, "world1": ref,
+             "ranks": ranks, "spawn_s": spawn_s, "launches": launches}
+    print(f"world 2 (two ranks on one card, gloo): {n_sites} CpGs, segment {segment_size} + {buffer_size}; "
+          f"{ref['halo']['arrays_equal']} + {ref['exchange']['arrays_equal']} npz arrays and the logZ files equal "
+          f"world 1's bit for bit; messages halo {ref['halo']['messages']}, exchange {ref['exchange']['messages']} "
+          f"(one call each); launches {[[rk[b]['launches'] for b in ('halo', 'exchange')] for rk in ranks]} a rank; "
+          f"spawn {spawn_s:.2f} s (world 1: {ref['halo']['wall_s']:.2f} + {ref['exchange']['wall_s']:.2f} s)")
+    return stats, launches
+
+
+def mesh_run_phase(device, root, ctx, n_sites, batch_size, buffer_size, seeds=2):
+    """run --two_group --mesh 4x2 --boundary exchange through the CLI on
+    phase 12's preprocessed chromosome with phase 12's theta stage copied
+    in (tests/test_orchestrator.py's way), so that INFER[mesh], aggregate
+    and DMPs run: the sequential run's file set per batch, one chunk's
+    launches, weighted_dmp_0.05.csv non-empty with at least half its
+    positions in planted windows. Returns (stats, launches)."""
+    import numpy as np
+    from hygeia_tpu_torch import cli
+    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
+    from hygeia_tpu_torch.parallel.sharded import expected_launches
+
+    out = os.path.join(root, "pipeline_mesh")
+    for stage in ("1_PREPROCESS", "2_ESTIMATE_PARAMETERS_AND_REGIMES"):
+        shutil.copytree(os.path.join(ctx["out"], stage), os.path.join(out, stage))
+    argv = ["run", "--two_group", "--output_dir", out, "--chroms", "3", "--cpg_file_path", ctx["cpg"],
+            "--batch_size", str(batch_size), "--buffer_size", str(buffer_size), "--num_of_inference_seeds",
+            str(seeds), "--mesh", f"{MESH_SHAPE[0]}x{MESH_SHAPE[1]}", "--boundary", "exchange", "--device", str(device)]
+    for flag, paths, prefix in (("control", ctx["controls"], "c"), ("case", ctx["cases"], "k")):
+        for i, p in enumerate(paths):
+            argv += [f"--{flag}_data_path", p, f"--{flag}_id_names", f"{prefix}{i}"]
+    KERNEL.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(argv)
+    wall = time.perf_counter() - t0
+    launches = KERNEL.launches
+    n_blocks = -(-max(1, -(-n_sites // batch_size)) // MESH_SHAPE[0]) * MESH_SHAPE[0]
+    want = expected_launches("exchange", batch_size, buffer_size, n_blocks // MESH_SHAPE[0], 1)
+    check(launches == want, f"mesh run: K1 launched {launches} times, the formula gives {want}")
+    rows = [r.split("\t") for r in open(os.path.join(out, "trace.tsv")).read().splitlines()[1:]]
+    ran = {r[0]: r for r in rows}
+    for stage in ("INFER[mesh]", "AGGREGATE_RESULTS", "GET_DMPS"):
+        check(stage in ran and ran[stage][3] == "False" and ran[stage][5] == "ok", f"mesh run: {stage} {ran.get(stage)}")
+    check(ran["ESTIMATE_PARAMETERS_AND_REGIMES"][3] == "True", "mesh run: the theta stage ran again")
+    seq = sorted(os.listdir(os.path.join(ctx["out"], "4_INFER", "chrom_3_0")))
+    n_batches = 1 + n_sites // batch_size
+    for b in range(n_batches):
+        got = sorted(os.listdir(os.path.join(out, "4_INFER", f"chrom_3_{b}")))
+        check(got == seq, f"mesh run: chrom_3_{b}'s files are not the sequential run's")
+    with open(os.path.join(out, "6_GET_DMPS", "3", "weighted_dmp_0.05.csv")) as f:
+        lines = f.read().splitlines()
+    called = np.array([int(ln.split(",")[1]) for ln in lines[1:]], np.int64)
+    check(called.size > 0, "mesh run: weighted_dmp_0.05.csv is empty")
+    site = np.searchsorted(ctx["pos0"], called)
+    precision = float(ctx["dmr"][site].mean())
+    recall = float(np.isin(np.flatnonzero(ctx["dmr"]), site).mean())
+    check(precision >= 0.5, f"mesh run: {precision:.3f} of the called DMPs lie in planted windows")
+    stage_s = {r[0]: float(r[2]) for r in rows}
+    stats = {"sites": n_sites, "batch_size": batch_size, "buffer_size": buffer_size, "batches": n_batches,
+             "wall_s": wall, "stage_s": stage_s, "dmps_weighted_0.05": int(called.size), "precision": precision,
+             "recall": recall, "launches": launches}
+    print(f"mesh run: run --two_group --mesh 4x2 --boundary exchange on phase 12's {n_sites} CpGs, batches of "
+          f"{batch_size} + {buffer_size}: launches={launches} (formula {want}); {wall:.2f} s, by stage {stage_s}; "
+          f"file sets per batch the sequential run's; weighted_dmp_0.05: {called.size} positions, {precision:.3f} in "
+          f"planted windows, recall {recall:.3f}")
+    return stats, launches
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1759,6 +2118,17 @@ def main(argv=None):
                     help="CpGs of the simulate_data phase (default 5000)")
     ap.add_argument("--trace_sites", type=int, default=300, help="infer --trace_dir's segment size (default 300)")
     ap.add_argument("--trace_buffer", type=int, default=30, help="infer --trace_dir's halo size (default 30)")
+    ap.add_argument("--mesh_sites", type=int, default=8_000,
+                    help="CpGs of the meshed phase's chromosome (default 8000)")
+    ap.add_argument("--mesh_segment", type=int, default=2_000, help="the meshed phase's segment (default 2000)")
+    ap.add_argument("--mesh_buffer", type=int, default=200, help="the meshed phase's halo (default 200)")
+    ap.add_argument("--world2_sites", type=int, default=2_400,
+                    help="CpGs of the two-rank phase's chromosome (default 2400)")
+    ap.add_argument("--world2_segment", type=int, default=600, help="the two-rank phase's segment (default 600)")
+    ap.add_argument("--world2_buffer", type=int, default=60, help="the two-rank phase's halo (default 60)")
+    ap.add_argument("--mesh_run_batch", type=int, default=3_300,
+                    help="run --mesh's --batch_size on phase 12's chromosome (default 3300)")
+    ap.add_argument("--mesh_run_buffer", type=int, default=330, help="run --mesh's --buffer_size (default 330)")
     args = ap.parse_args(argv)
     if args.sites + args.buffer > args.chrom_sites:
         ap.error("the infer segment and halo must fit in the chromosome")
@@ -1786,17 +2156,21 @@ def main(argv=None):
 
     from hygeia_tpu_torch.ops import build
     from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
+    from hygeia_tpu_torch.ops.probe import PROBE
 
     t0 = time.perf_counter()
+    builds = build.build_all()  # one nvcc a source, all started together
     KERNEL.load()
-    info = KERNEL.build
-    print(f"build: {info.path.name} from {[s.name for s in build.sources()]} "
-          f"in {time.perf_counter() - t0:.2f} s (nvcc {info.seconds:.2f} s)")
-    for line in info.log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    PROBE.load()
+    print(f"build: {[s.name for s in build.sources()]} in {time.perf_counter() - t0:.2f} s, one nvcc each in "
+          f"parallel: " + ", ".join(f"{k} {v.seconds:.2f} s" for k, v in builds.items()))
+    for name, info in builds.items():
+        for line in info.log.splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                print(f"  ptxas ({name}): {line.strip()}")
 
     max_err, times = kernel_phase(device)
+    pr_stats, pr_launches = probe_phase(device)
     onsets = hazard_phase(device)
     offpath = offpath_phase(device)
 
@@ -1815,7 +2189,7 @@ def main(argv=None):
                                              args.robust_buffer)
         bl_stats, bl_launches = blocked_phase(device, root, regime, args.theta_block, args.theta_halo,
                                               args.theta_warmup)
-        pl_stats, pl_launches, plb_launches = pipeline_phase(device, root, args.pipeline_sites)
+        pl_stats, pl_launches, plb_launches, pl_ctx = pipeline_phase(device, root, args.pipeline_sites)
         sgp_stats, sgp_launches = sg_pipeline_phase(device, root, args.sg_pipeline_sites)
         mg_stats, mg_launches = marginal_phase(device, root, data_dir, sg_dir, dmr, args.marginal_sites,
                                                args.marginal_buffer, os.path.join(root, "results", "chrom_1_0"),
@@ -1823,6 +2197,11 @@ def main(argv=None):
         s2_stats, s2_launches = simulate_two_groups_phase(device, root)
         sd_stats, sd_launches, rep_launches = simulate_data_phase(device, root, args.simulate_data_sites)
         tr_stats, tr_launches = trace_phase(device, root, data_dir, sg_dir, args.trace_sites, args.trace_buffer)
+        ms_stats, ms_launches = meshed_phase(device, root, args.mesh_sites, args.mesh_segment, args.mesh_buffer)
+        w2_stats, w2_launches = world2_phase(device, root, args.world2_sites, args.world2_segment,
+                                             args.world2_buffer)
+        mr_stats, mr_launches = mesh_run_phase(device, root, pl_ctx, args.pipeline_sites, args.mesh_run_batch,
+                                               args.mesh_run_buffer)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1841,7 +2220,7 @@ def main(argv=None):
         "replaces": "hygeia_tpu/ops/pallas_resampling.py:50",
         "launches": (sg_launches + launches + st_launches + ch_launches + rb_launches + bl_launches + pl_launches
                      + plb_launches + sgp_launches + mg_launches + s2_launches + sd_launches + rep_launches
-                     + tr_launches),
+                     + tr_launches + ms_launches["halo"] + ms_launches["exchange"] + w2_launches + mr_launches),
         "launches_single_group": sg_launches,
         "launches_two_group": launches,
         "launches_streamed": st_launches,
@@ -1856,6 +2235,10 @@ def main(argv=None):
         "launches_simulate_data_regimes": sd_launches,
         "launches_replicates": rep_launches,
         "launches_trace": tr_launches,
+        "launches_meshed_halo": ms_launches["halo"],
+        "launches_meshed_exchange": ms_launches["exchange"],
+        "launches_meshed_world2": w2_launches,
+        "launches_mesh_run": mr_launches,
         # This run's counts per site, per path: over the resampling sites
         # (single group, two group), over the window's sites (streamed) and
         # over the sites of the chunks' windows (chromosome: one launch
@@ -1887,10 +2270,27 @@ def main(argv=None):
         "bytes": sg["bytes"],
         **times["floor"],
         "by_shape": {k: {"shape": shapes[k], **times[k]} for k in shapes},
+    }, {
+        "name": "probe",
+        "route": "cuda",
+        "source": "hygeia_tpu_torch/csrc/probe.cu",
+        "replaces": ".round4/pallas_smoke.py:11",
+        "launches": pr_launches,
+        "max_abs_err": pr_stats["max_abs_err"],
+        "ms": pr_stats["ms"],
+        "plain_ms": pr_stats["plain_ms"],
+        "bound_ms": pr_stats["bound_ms"],
+        "bound_by": pr_stats["bound_by"],
+        "library_ms": None,
+        "library": "no single PyTorch call computes it",
+        "device_ms": pr_stats["device_ms"],
+        "bytes": pr_stats["bytes"],
+        "shape": "(8, 128) f32, one block",
     }], "card": card, "hazard_onsets": onsets, "single_group": sg_stats, "slice": stats,
         "streamed": st_stats, "chromosome": ch_stats, "robust": rb_stats, "blocked": bl_stats,
         "pipeline": pl_stats, "single_group_pipeline": sgp_stats, "marginal": mg_stats, "offpath": offpath,
         "simulate_two_groups": s2_stats, "simulate_data": sd_stats, "trace": tr_stats,
+        "meshed": ms_stats, "world2": w2_stats, "mesh_run": mr_stats,
         "smoke_s": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

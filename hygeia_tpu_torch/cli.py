@@ -120,9 +120,12 @@ def build_parser():
                          "resumed run")
     sp.add_argument("--stub_run", action="store_true", help="wire the stage tree with empty outputs")
     sp.add_argument("--mesh", default=None, metavar="GxS",
-                    help="INFER on a (genome x seed) device mesh: not ported yet (raises)")
+                    help="run INFER on a (genome x seed) mesh, e.g. 4x2: the chromosome's "
+                         "(batch x seed) units in one batched site loop a rank (torchrun for "
+                         "several ranks)")
     sp.add_argument("--boundary", default="halo", choices=["halo", "exchange"],
-                    help="meshed-INFER block-join scheme (with --mesh)")
+                    help="meshed-INFER block-join scheme (with --mesh): halo buffers, or "
+                         "boundary messages between neighbouring windows")
     _add_device(sp)
 
     sp = sub.add_parser("infer", help="two-group inference on one segment")

@@ -78,7 +78,7 @@ class _Kernel:
         if self.lib is None:
             from hygeia_tpu_torch.ops.build import load_library
 
-            lib, info = load_library()
+            lib, info = load_library("optimal_resampling")
             vp, i = ctypes.c_void_p, ctypes.c_int
             lib.hygeia_optimal_resampling.argtypes = [vp, vp, vp, i, i, i, vp, vp, vp, vp, vp, vp]
             lib.hygeia_optimal_resampling.restype = i

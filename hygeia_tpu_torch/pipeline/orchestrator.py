@@ -16,13 +16,17 @@ The theta and INFER stages run on ``device`` (the CLI's ``--device``,
 default cuda); preprocessing, segments, aggregation and DMP calling are
 host numpy work, as in the JAX package. With ``bucket_dir`` the output
 tree is mirrored to a store after every completed stage and restored from
-it before a resumed run (utils/staging.py). Not ported yet, and raising
-NotImplementedError: the meshed INFER (``mesh_shape``).
+it before a resumed run (utils/staging.py). With ``mesh_shape`` INFER runs
+a chromosome's (batch x seed) units on a (genome x seed) mesh
+(``runner.infer_chromosome_meshed``). Under ``torch.distributed`` (torchrun,
+parallel/launcher.py) rank 0 runs every stage and the other ranks join its
+meshed INFER calls only.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import platform
 import sys
 import time
@@ -34,10 +38,6 @@ import torch
 from hygeia_tpu_torch import __version__ as _VERSION
 from hygeia_tpu_torch.single_group import theta_config as _tc
 from hygeia_tpu_torch.utils import io as hio
-
-
-def _not_ported(what, item):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")
 
 
 class StageTrace:
@@ -222,8 +222,6 @@ def run_two_group(
     (streamed in blocks when ``streaming_blocks`` is given), retried with
     half the seeds of a chunk on each failure and then ignored; aggregation
     then skips the missing units."""
-    if mesh_shape is not None:
-        _not_ported("--mesh (meshed INFER)", "item 14")
     if stream_batched and not streaming_blocks:
         raise ValueError(
             "stream_batched requires streaming_blocks (--run_stream_batched only applies to the "
@@ -239,6 +237,13 @@ def run_two_group(
     if device is None:
         raise ValueError("run_two_group needs a device for its model stages")
     device = torch.device(device)
+    from hygeia_tpu_torch.parallel.launcher import initialize_distributed
+
+    rank, world = initialize_distributed()
+    if world > 1 and mesh_shape is None:
+        raise ValueError(f"run over {world} ranks needs --mesh: only the meshed INFER spans ranks")
+    if rank != 0:
+        return _follow_meshed_infer(chroms, world, max_retries)
     mirror = _open_mirror(bucket_dir, out, resume, trace)
     sg_kw = dict(mu=mu, sigma=sigma, u=u, n_particles=n_particles_single_group, epsilon=epsilon,
                  steps_per_update=n_steps_without_parameter_update,
@@ -284,6 +289,8 @@ def run_two_group(
 
             if not _attempt(_sg_stage, trace=trace, stage="ESTIMATE_PARAMETERS_AND_REGIMES", chrom=chrom,
                             max_retries=max_retries):
+                if mesh_shape is not None:
+                    _send_plan(world, None)
                 continue  # everything downstream needs theta
         else:
             trace.record("ESTIMATE_PARAMETERS_AND_REGIMES", chrom, 0.0, skipped=True)
@@ -307,7 +314,33 @@ def run_two_group(
                         minimum_duration=u, num_resampled_particles=(num_resampled_particles,),
                         num_samples_backward=num_samples_backward, streaming_blocks=streaming_blocks)
         any_unit_failed = False
-        if stream_batched:
+        if mesh_shape is not None:
+            # The chromosome's (batch x seed) grid on the mesh: one marker and
+            # one retry scope. Every rank makes the same call.
+            unit = infer_dir / f"unit_{chrom}_meshed"
+            mesh_kw = None
+            if _stage(unit, resume):
+                mesh_kw = dict(
+                    data_dir=str(pre_dir), single_group_dir=str(sg_dir), results_dir=str(infer_dir),
+                    chrom=chrom, device=device, mesh_shape=tuple(mesh_shape), boundary=boundary,
+                    seed=list(inference_seeds), segment_size=segment_size, buffer_size=buffer_size, mu=mu,
+                    sigma=sigma, minimum_duration=u, num_resampled_particles=(num_resampled_particles,),
+                    num_samples_backward=num_samples_backward, rng_seed=rng_seed)
+            n_units = n_batches * len(inference_seeds)
+            _send_plan(world, None if mesh_kw is None else (mesh_kw, n_units))
+            if mesh_kw is None:
+                trace.record("INFER[mesh]", chrom, 0.0, skipped=True)
+            else:
+                from hygeia_tpu_torch.two_group.runner import infer_chromosome_meshed
+
+                def _infer_meshed(attempt):
+                    infer_chromosome_meshed(**mesh_kw, max_units_per_call=_units_cap(n_units, attempt))
+                    _finish(unit, mirror)
+
+                any_unit_failed |= not _attempt(_infer_meshed, trace=trace, stage="INFER[mesh]", chrom=chrom,
+                                                max_retries=max_retries)
+            seq_batches = ()
+        elif stream_batched:
             from hygeia_tpu_torch.two_group.runner import infer_chromosome_streamed
 
             unit = infer_dir / f"unit_{chrom}_streambatched"
@@ -373,6 +406,42 @@ def run_two_group(
 
     trace.flush()
     return out
+
+
+def _send_plan(world, plan):
+    """Rank 0's meshed INFER call for one chromosome ((its keyword
+    arguments, the chromosome's units), or None: nothing runs), sent to
+    every rank; returns it."""
+    if world > 1:
+        import torch.distributed as dist
+
+        box = [plan]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+    return plan
+
+
+def _follow_meshed_infer(chroms, world, max_retries):
+    """A rank other than 0: join rank 0's meshed INFER call of every
+    chromosome that runs one (one plan a chromosome), retried as rank 0
+    retries it. Writes nothing."""
+    from hygeia_tpu_torch.two_group.runner import infer_chromosome_meshed
+
+    trace = StageTrace(os.devnull)  # for _attempt's records; never flushed
+    for chrom in chroms:
+        plan = _send_plan(world, None)
+        if plan is not None:
+            kw, n_units = plan
+            _attempt(lambda attempt: infer_chromosome_meshed(**kw, max_units_per_call=_units_cap(n_units, attempt)),
+                     trace=trace, stage="INFER[mesh]", chrom=chrom, max_retries=max_retries)
+    return None
+
+
+def _units_cap(n_units, attempt):
+    """The meshed INFER's units a chunk on try ``attempt``: no cap on the
+    first, then half the chromosome's (batch x seed) units on each retry,
+    as the streamed path's retries back off."""
+    return None if attempt == 1 else max(1, n_units >> (attempt - 1))
 
 
 def _stub_two_group(out, chroms, inference_seeds, n_backward_total):
@@ -630,6 +699,10 @@ def run_single_group(
     if device is None:
         raise ValueError("run_single_group needs a device for its model stages")
     device = torch.device(device)
+    from hygeia_tpu_torch.parallel.launcher import initialize_distributed
+
+    if initialize_distributed()[0] != 0:
+        return None  # no stage spans ranks: rank 0 runs them all
     mirror = _open_mirror(bucket_dir, out, resume, trace)
 
     units = []  # (sample_id, chrom, pre_dir, group)

@@ -135,9 +135,16 @@ def _backward_logits(params: TwoGroupParams, cur: State, nxt: State, lw_t, *, hi
 
 def gumbel(shape, *, generator, dtype=torch.float32, device=None):
     """Standard Gumbel noise -log(-log(u)), u uniform on [tiny, 1), as
-    jax.random.gumbel draws it."""
+    jax.random.gumbel draws it. ``generator`` may be a list of shape[0]
+    generators: row u then holds what a one-row draw on generator u holds."""
     tiny = torch.finfo(dtype).tiny
-    u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
+    if isinstance(generator, (list, tuple)):
+        if len(generator) != shape[0]:
+            raise ValueError(f"{len(generator)} generators for {shape[0]} units")
+        u = torch.cat([torch.rand((1, *shape[1:]), generator=g, dtype=dtype, device=device)
+                       for g in generator])
+    else:
+        u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
     return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
 
 
@@ -158,7 +165,8 @@ def backward_simulation(
 ):
     """(U, T, B, 5) int32 sampled smoothing trajectories.
 
-    Gumbel noise comes from ``generator``, or from ``noise(t)`` when given:
+    Gumbel noise comes from ``generator`` (one, or a list of U: one a
+    unit, see ``gumbel``), or from ``noise(t)`` when given:
     a callable returning the (U, B, N) noise for row t (T-1 for the terminal
     draw), so a test can feed both packages the same numbers."""
     return backward_simulation_conditioned(

@@ -153,8 +153,21 @@ def _renormalise(new_lw):
     return new_lw, shift, degenerate
 
 
-def _draw_uniforms(generator, U, M, device):
-    """A site's resampling uniforms: u_sys (U,), then u_mult (U, M)."""
+def _draw_uniforms(generator, U, M, device, only=None):
+    """A site's resampling uniforms: u_sys (U,), then u_mult (U, M).
+
+    With a list of U generators unit u draws from generator u what a
+    one-unit run on it draws; ``only`` (U host bools) then limits the
+    draws to the units it marks, and the others get placeholders of 0.5
+    (their results are discarded)."""
+    if isinstance(generator, (list, tuple)):
+        draws = [
+            (torch.rand((1,), generator=g, device=device), torch.rand((1, M), generator=g, device=device))
+            if only is None or only[u] else
+            (torch.full((1,), 0.5, device=device), torch.full((1, M), 0.5, device=device))
+            for u, g in enumerate(generator)
+        ]
+        return torch.cat([us for us, _ in draws]), torch.cat([um for _, um in draws])
     u_sys = torch.rand((U,), generator=generator, device=device)
     return u_sys, torch.rand((U, M), generator=generator, device=device)
 
@@ -179,7 +192,7 @@ def run_filter(
     num_resampled_ancestors: int,
     *,
     n_units: int,
-    generator: torch.Generator,
+    generator,
     weight_dtype=torch.float32,
     phantom_regime=None,
     return_history: bool = True,
@@ -202,8 +215,16 @@ def run_filter(
     a degenerate warm step is reset and counted like any other site. The
     generator then draws site 0's uniforms first, and the realisation of a
     block is the monolithic filter's over the same sites. use_init, a (U,)
-    bool tensor, picks warm (True) or cold per unit; the phantom regimes of
-    the cold start are then drawn after site 0's uniforms.
+    bool tensor (or U host bools), picks warm (True) or cold per unit; the
+    phantom regimes of the cold start are then drawn after site 0's
+    uniforms.
+
+    ``generator`` is one torch.Generator for all units, or a list of U,
+    one a unit: unit u then draws from generator u exactly what a one-unit
+    run on it draws, whatever the other units are; with use_init a warm
+    unit draws what a warm run draws and a cold unit what a cold run draws
+    (site 0's uniforms of a cold unit and the phantom regime of a warm one
+    are placeholders, not draws).
 
     History: preallocated (U, T, N) tensors, written row by row IN PLACE
     (f32 weights, int32 durations, int8 flag and regimes). Row 0 is the
@@ -217,8 +238,18 @@ def run_filter(
     U = int(n_units)
     dev = params.device
 
-    def cold_start():
-        if phantom_regime is None:
+    per_unit = isinstance(generator, (list, tuple))
+    if per_unit and len(generator) != U:
+        raise ValueError(f"{len(generator)} generators for {U} units")
+
+    def cold_start(only=None):
+        if phantom_regime is None and per_unit:
+            phantom_r = torch.cat([
+                torch.randint(0, R, (1,), generator=g, device=dev) if only is None or only[u]
+                else torch.zeros((1,), dtype=torch.int64, device=dev)
+                for u, g in enumerate(generator)
+            ])
+        elif phantom_regime is None:
             phantom_r = torch.randint(0, R, (U,), generator=generator, device=dev)
         else:
             phantom_r = torch.full((U,), int(phantom_regime), device=dev)
@@ -233,7 +264,12 @@ def run_filter(
         lw, parts, init_shift = cold_start()
     else:
         init_lw, init_parts = init_state
-        u_sys, u_mult = _draw_uniforms(generator, U, M, dev)
+        warm = None  # host flags, needed only to pick the units that draw
+        if use_init is not None and per_unit:
+            warm = use_init.tolist() if torch.is_tensor(use_init) else [bool(v) for v in use_init]
+        if use_init is not None:
+            use_init = torch.as_tensor(use_init, dtype=torch.bool, device=dev)
+        u_sys, u_mult = _draw_uniforms(generator, U, M, dev, only=warm)
         lw, parts, init_shift, warm_degen = warm_step(
             params, emission_control, emission_case, init_lw.to(weight_dtype), init_parts,
             M, u_sys, u_mult,
@@ -241,7 +277,7 @@ def run_filter(
         if use_init is None:
             n_degen = n_degen + warm_degen
         else:
-            cold_lw, cold_parts, cold_shift = cold_start()
+            cold_lw, cold_parts, cold_shift = cold_start(None if warm is None else [not w for w in warm])
             lw = torch.where(use_init[:, None], lw, cold_lw)
             parts = torch.where(use_init[:, None, None], parts, cold_parts)
             init_shift = torch.where(use_init, init_shift, cold_shift)

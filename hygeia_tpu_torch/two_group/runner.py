@@ -2,7 +2,8 @@
 reference-format outputs.
 
 Counterpart of hygeia_tpu/two_group/runner.py (``segment_window``,
-``infer_segment``, ``infer_chromosome_streamed``). On the monolithic path
+``infer_segment``, ``infer_chromosome_streamed``,
+``infer_chromosome_meshed``: parallel/sharded.py over a mesh of ranks). On the monolithic path
 the whole (T, N) history of a chunk of seeds is held on the device, then
 consumed by the backward pass; with ``streaming_blocks=W`` the chunk runs
 through two_group/streaming.py, which holds one W-site block. The seeds of
@@ -589,4 +590,169 @@ def infer_chromosome_streamed(
         for s in seeds:
             _write_seed_files(path, flags, s, all_log_norm[batch][s], times[batch][s],
                               {n: 0.0 for n in times[batch][s]})
+    return all_log_norm
+
+
+def infer_chromosome_meshed(
+    *,
+    data_dir,
+    single_group_dir,
+    results_dir,
+    chrom,
+    mesh_shape,  # (n_genome, n_seed_mesh)
+    device,
+    boundary="halo",
+    seed=(0, 1),
+    segment_size=100000,
+    buffer_size=5000,
+    mu=DEFAULT_MU,
+    sigma=DEFAULT_SIGMA,
+    minimum_duration=3,
+    omega_case=0.8,
+    merge_log_prob=np.log(0.1),
+    split_prob=0.01,
+    num_resampled_particles=(50,),
+    num_samples_backward=25,
+    robust=False,
+    robust_beta=0.05,
+    weight_dtype=torch.float32,
+    rng_seed=0,
+    max_units_per_call=None,
+    timings=None,
+):
+    """Whole-chromosome INFER on a (genome x seed) mesh over the
+    ``torch.distributed`` ranks (parallel/sharded.py): every (batch, seed)
+    unit of the chromosome runs in one batched site loop a rank and memory
+    chunk, instead of one ``infer_segment`` call a batch. Writes
+    infer_segment's per-(batch, seed) file set, so AGGREGATE_RESULTS and
+    GET_DMPS read it unchanged; only rank 0 writes, and only rank 0 returns
+    {seed: {batch: {N: logZ}}} (the other ranks return None).
+
+    As the JAX runner's meshed path: d_max = max(64, T + 1) over the whole
+    chromosome (exchange warm starts carry sojourns across windows); the
+    split and regime probabilities cover the segment rows only; the flags
+    record ``mesh`` and ``boundary``; optimal_time_{s} holds the call's
+    wall over the units and optimal_time_backward_{s} {N: 0.0}; in
+    exchange mode a batch's logZ file holds its enclosing window's logZ.
+    robust=True takes the beta-divergence score of exponent robust_beta.
+    Realisations differ from infer_segment's (per-unit generators,
+    symmetric zero-padded halos). ``timings``, a dict, gets
+    ``sharded_two_group_inference``'s per particle budget N."""
+    from hygeia_tpu_torch.parallel.mesh import make_mesh
+    from hygeia_tpu_torch.parallel.sharded import sharded_two_group_inference
+
+    device = torch.device(device)
+    mu = np.asarray(mu, np.float64)
+    R = len(mu)
+    n_genome, n_seed_mesh = mesh_shape
+    mesh = make_mesh(n_genome, n_seed_mesh, device=device)
+
+    theta = hio.read_theta(os.path.join(single_group_dir, f"theta_{chrom}.csv.gz"))
+    p_softmax, omega_logit_control = hio.theta_file_to_p_softmax(theta, R)
+    positions = hio.read_positions(os.path.join(data_dir, f"positions_{chrom}.txt.gz"))
+    T = len(positions)
+
+    def _load(name):
+        return hio.read_count_matrix(os.path.join(data_dir, f"{name}_{chrom}.txt.gz"))
+
+    n_total_control = _load("n_total_reads_control")
+    n_meth_control = _load("n_methylated_reads_control")
+    n_total_case = _load("n_total_reads_case")
+    n_meth_case = _load("n_methylated_reads_case")
+    if np.any(n_total_case < n_meth_case) or np.any(n_total_control < n_meth_control):
+        raise ValueError("methylated read counts exceed total read counts")
+
+    params = _make_params(mu, sigma, p_softmax, omega_logit_control, omega_case, merge_log_prob,
+                          split_prob, minimum_duration, max(64, T + 1), device)
+    seeds = [seed] if np.isscalar(seed) else list(seed)
+    n_batches = 1 + T // segment_size
+    B = num_samples_backward
+    all_log_norm = {s: {} for s in seeds}
+    times = {s: {} for s in seeds}
+    primary = mesh.rank == 0
+
+    for M in num_resampled_particles:
+        N = M * (2 * R + R * R)
+        tim = {}
+        _sync(device)
+        t0 = time.perf_counter()
+        out = sharded_two_group_inference(
+            mesh, params, n_meth_control, n_total_control, n_meth_case, n_total_case,
+            segment_size=segment_size, buffer_size=buffer_size, num_resampled_ancestors=M,
+            num_samples_backward=B, seeds=seeds, base_key=rng_seed, weight_dtype=weight_dtype,
+            boundary=boundary, robust_beta=robust_beta if robust else None,
+            max_units_per_call=max_units_per_call, timings=tim,
+        )
+        wall = time.perf_counter() - t0
+        if timings is not None:
+            timings[N] = {**tim, "wall_s": wall}
+        if not primary:
+            continue
+        traj, log_z = out
+        for i, s in enumerate(seeds):
+            n_degen = int(tim["degenerate"][:, i].sum())
+            _report_degenerate(f"seed {s}", n_degen)
+        per_unit = wall / max(1, n_batches * len(seeds))
+        bpd = (traj.shape[0] // segment_size) // log_z.shape[0]
+
+        for batch in range(n_batches):
+            lo, hi = batch * segment_size, min((batch + 1) * segment_size, T)
+            path = os.path.join(results_dir, f"chrom_{chrom}_{batch}")
+            os.makedirs(path, exist_ok=True)
+            rows = slice(lo, hi)
+            for name, arr in (
+                ("observations_control", n_meth_control.astype(np.int16)),
+                ("observations_case", n_meth_case.astype(np.int16)),
+                ("n_total_reads_control", n_total_control.astype(np.int16)),
+                ("n_total_reads_case", n_total_case.astype(np.int16)),
+                ("positions", positions),
+            ):
+                hio.write_count_matrix(os.path.join(path, f"{name}.csv.gz"), arr[rows])
+            traj_b = traj[rows]  # (hi - lo, n_seeds * B, 5)
+            if boundary == "exchange":
+                lz_row = log_z[min(batch // max(bpd, 1), log_z.shape[0] - 1)]
+            else:
+                lz_row = log_z[min(batch, log_z.shape[0] - 1)]
+            for i, s in enumerate(seeds):
+                tb = traj_b[:, i * B : (i + 1) * B]
+                for name, arr in (("merged_state", tb[:, :, 0].astype(np.int16)),
+                                  ("control_state", tb[:, :, 1:3].astype(np.int32)),
+                                  ("case_state", tb[:, :, 3:5].astype(np.int32))):
+                    hio.savez_fast(os.path.join(path, f"optimal_backward_particles_{name}_{N}_{s}"), arr)
+                split_s = (tb[:, :, 0] == 0).mean(axis=1).astype(np.float32)
+                regime_s = np.concatenate(
+                    [np.stack([(tb[:, :, 2] == r).mean(axis=1) for r in range(R)], -1),
+                     np.stack([(tb[:, :, 4] == r).mean(axis=1) for r in range(R)], -1)],
+                    axis=-1,
+                ).astype(np.float32)
+                hio.savez_fast(os.path.join(path, f"optimal_split_probs_{N}_{s}"), split_s)
+                hio.savez_fast(os.path.join(path, f"optimal_regime_probs_{N}_{s}"), regime_s)
+                all_log_norm[s].setdefault(batch, {})[N] = float(lz_row[i])
+                times[s].setdefault(batch, {})[N] = per_unit
+
+    if not primary:
+        return None
+    flags = {
+        "chrom": str(chrom), "segment_size": segment_size,
+        "buffer_size": buffer_size, "mu": list(map(float, mu)),
+        "sigma": list(map(float, np.asarray(sigma, np.float64))),
+        "minimum_duration": minimum_duration, "omega_case": omega_case,
+        "merge_log_prob": float(merge_log_prob), "split_prob": split_prob,
+        "num_resampled_particles": list(num_resampled_particles),
+        "num_samples_backward": num_samples_backward,
+        "robust": robust, "mesh": f"{n_genome}x{n_seed_mesh}",
+        "boundary": boundary,
+    }
+    for batch in range(n_batches):
+        path = os.path.join(results_dir, f"chrom_{chrom}_{batch}")
+        for s in seeds:
+            with open(os.path.join(path, f"flags{s}.txt"), "w") as f:
+                for k, v in {**flags, "batch": batch, "seed": s}.items():
+                    print(f"--{k}={v}", file=f)
+            with open(os.path.join(path, f"log_normalizing_constants_optimal_{s}.txt"), "w") as f:
+                print(all_log_norm[s][batch], file=f)
+            with open(os.path.join(path, f"optimal_time_{s}.txt"), "w") as f:
+                print(times[s][batch], file=f)
+            with open(os.path.join(path, f"optimal_time_backward_{s}.txt"), "w") as f:
+                print({n: 0.0 for n in times[s][batch]}, file=f)
     return all_log_norm

@@ -534,3 +534,53 @@ def test_infer_trace_on_the_card_holds_cuda_kernels(device, tmp_path):
     events = json.loads(trace.read_text())["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     assert kernels and any("optimal_resampling" in e["name"] for e in kernels)
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (1,), (1000,), (33, 257)])
+def test_probe_kernel_equals_plain(device, shape):
+    """The probe kernel (csrc/probe.cu) against 2 * x + x.max(), bit for
+    bit, at .round4/pallas_smoke.py's (8, 128) and other sizes; a NaN makes
+    every output NaN, as in the plain version."""
+    from hygeia_tpu_torch.ops import probe as pr
+
+    rng = np.random.default_rng(sum(shape))
+    x = torch.from_numpy((rng.standard_normal(shape) * 100).astype(np.float32)).to(device)
+    before = pr.PROBE.launches
+    got = pr.probe(x)
+    assert pr.PROBE.launches == before + 1
+    assert torch.equal(got, pr.probe_plain(x))
+    x.view(-1)[x.numel() // 2] = float("nan")
+    torch.testing.assert_close(pr.probe(x), pr.probe_plain(x), rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("boundary", ["halo", "exchange"])
+def test_meshed_inference_on_the_card(device, boundary):
+    """sharded_two_group_inference on the card, mesh 4x2, R = 6, M = 50:
+    K1 launched as expected_launches says (one chunk, and chunks of 3), logZ
+    finite, and a second call equal to the first bit for bit."""
+    from hygeia_tpu_torch.parallel import make_mesh, sharded_two_group_inference
+    from hygeia_tpu_torch.parallel.sharded import expected_launches
+    from hygeia_tpu_torch.two_group.model import make_params
+
+    R = 6
+    params = make_params(
+        mu=(0.95, 0.05, 0.80, 0.20, 0.50, 0.50), sigma=(0.05, 0.05, 0.1, 0.1, 0.1, 0.2886751),
+        p_softmax_control=np.zeros((R, R)), omega_logit_control=np.full(R, 2.0), omega_case=0.8,
+        kappa_control=np.full(R, 2.0), kappa_case=np.full(R, 2.0), merge_log_prob=np.log(0.1), split_prob=0.01,
+        minimum_duration=3, d_max=201, device=device)
+    rng = np.random.default_rng(3)
+    n = rng.poisson(20, size=(200, 2)).astype(np.float32)
+    y = np.minimum(rng.poisson(10, size=(200, 2)), n).astype(np.float32)
+    kw = dict(segment_size=50, buffer_size=10, num_resampled_ancestors=50, num_samples_backward=25, seeds=[0, 1],
+              boundary=boundary)
+    outs = []
+    for cap in (None, None, 3):
+        tim = {}
+        before = cr.KERNEL.launches
+        outs.append(sharded_two_group_inference(make_mesh(4, 2, device=device), params, y, n, y, n,
+                                                max_units_per_call=cap, timings=tim, **kw))
+        chunks = len(tim["chunks"])
+        reruns = 2 if boundary == "exchange" and cap else 0  # (0,0),(0,1),(1,0) | (1,1),(2,0),(2,1) | (3,*)
+        assert cr.KERNEL.launches - before == expected_launches(boundary, 50, 10, 1, chunks, reruns)
+        assert np.isfinite(outs[-1][1]).all()
+    assert np.array_equal(outs[0][0], outs[1][0]) and np.array_equal(outs[0][1], outs[1][1])

@@ -2,7 +2,7 @@
 on the CPU: its stage tree against the JAX orchestrator's, a whole run from
 BED files to DMP calls at a tiny size (M=3, B=4, N=30 single-group
 particles, a 420-CpG chromosome in 3 batches), resume, retry and ignore,
-the batched theta stage, and the options that are not ported."""
+the batched theta stage, and the meshed INFER's options."""
 
 import os
 from pathlib import Path
@@ -153,19 +153,29 @@ def test_batched_theta_stage_equals_per_chromosome_runs(beds, tmp_path):
             assert (tio._read_text(tmp_path / "s" / c / name) == tio._read_text(tmp_path / "b" / c / name)), name
 
 
-# --bucket_dir is ported (tests/test_torch_staging.py); the meshed INFER
-# still raises, naming its ROADMAP item, on every mesh shape and boundary.
+# The meshed INFER (ROADMAP item 14) raised on these options until it was
+# ported; now every mesh shape and boundary runs INFER[mesh] and the stages
+# after it (theta copied from the sequential run) and writes the sequential
+# run's file set per batch.
 @pytest.mark.parametrize("argv", [
     ["run", "--two_group", "--mesh", "2x1"],
     ["run", "--two_group", "--mesh", "1x1"],
     ["run", "--two_group", "--mesh", "2x1", "--boundary", "exchange"],
     ["run", "--two_group", "--mesh", "1x2", "--bucket_dir", "x"],
 ])
-def test_unported_options_raise(tmp_path, argv):
-    extra = ["--output_dir", str(tmp_path / "o"), "--chroms", "3", "--device", "cpu"] if argv[0] == "run" else []
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
-        torch_cli.main([*argv, *extra])
-    assert not (tmp_path / "o").exists()
+def test_unported_options_raise(beds, real_run, tmp_path, argv):
+    import shutil
+
+    out = tmp_path / "o"
+    shutil.copytree(real_run / "2_ESTIMATE_PARAMETERS_AND_REGIMES", out / "2_ESTIMATE_PARAMETERS_AND_REGIMES")
+    argv = [str(tmp_path / a) if a == "x" else a for a in argv]
+    torch_cli.main([*argv, "--output_dir", str(out), "--chroms", "3", *beds, *TINY])
+    rows = [r.split("\t") for r in (out / "trace.tsv").read_text().splitlines()[1:]]
+    assert [r[5] for r in rows if r[0] == "INFER[mesh]"] == ["ok"], rows
+    for b in range(3):
+        assert _files(out / "4_INFER" / f"chrom_3_{b}") == _files(real_run / "4_INFER" / f"chrom_3_{b}"), b
+    assert (out / "4_INFER" / "unit_3_meshed" / ".done").exists()
+    assert (out / "6_GET_DMPS" / "3" / "weighted_dmp_0.05.csv").exists()
 
 
 def test_run_device_cuda_raises_without_cuda(beds, tmp_path):
