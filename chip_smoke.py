@@ -2,14 +2,14 @@
 """Smoke test of the PyTorch port (hygeia_tpu_torch) on one CUDA GPU.
 
     python3 chip_smoke.py                                       # the full check
-    python3 chip_smoke.py --chrom_sites 105000                  # phase 5's chromosome as long as it was
     python3 chip_smoke.py --chrom_sites 3300 --sites 3000 --buffer 300 --stream_block 512 \
-        --chrom2_sites 3000 --robust_sites 600 --robust_buffer 60 --theta_block 1024 \
+        --chrom2_sites 3000 --robust_sites 1200 --robust_buffer 120 --theta_block 1024 \
         --theta_halo 128 --theta_warmup 1024 --pipeline_sites 2600 --sg_pipeline_sites 1500 \
         --marginal_sites 1500 --marginal_buffer 150 --simulate_data_sites 1000 \
         --trace_sites 100 --trace_buffer 10 --mesh_sites 2000 --mesh_segment 500 --mesh_buffer 50 \
         --world2_sites 2400 --world2_segment 600 --world2_buffer 60 \
-        --mesh_run_batch 700 --mesh_run_buffer 70   # a quick look
+        --mesh_run_batch 700 --mesh_run_buffer 70 --graph_sites 1000 --graph_buffer 100 \
+        --graph_stream_block 512 --graph_sg_sites 1000   # a quick look
 
 Phases, each of which raises (exit code non-zero) when it fails:
 
@@ -47,25 +47,24 @@ Phases, each of which raises (exit code non-zero) when it fails:
    the discrete-normal family at float64 within rtol 1e-12 over integers
    from tail to tail, and both conditional resamplers equal given the same
    uniforms (N = 40 at U = 256, N = 2,400 and M = 50 at U = 64);
-5. a seeded reference-format chromosome of 40,000 CpGs is written to a
+5. a seeded reference-format chromosome of 105,000 CpGs is written to a
    temporary directory: 2 control + 2 case samples for ``infer`` and the
    two control samples as headed CSVs for the single-group engine, which
-   reads all of it (cut from 105,000, so that phases 10-12 fit);
+   reads all of it (40,000 while the site loops ran eagerly, PRs 5-8);
 6. ``hygeia_tpu_torch.cli estimate_parameters_and_regimes`` on the control
    samples (N=250, M_cap=244, S_cap=128, D=36, both estimates on, f32),
    with checks on its output files, logZ, the theta trace, the kernel's
    launch count and the planted high and low methylation stretches; its
    theta file is the one the next phase reads;
 7. ``hygeia_tpu_torch.cli infer`` on the estimated theta, batch 0 of the
-   chromosome (segment 10,000 + halo 1,000, M=50 -> N=2400, B=25, f32;
-   the segment is cut from the production 100,000, from the 50,000 it had
-   while a host ran both site loops at 2.8-3.6 ms a site, and from the
-   30,000 + 5,000 it had before phases 8 and 9 came), with checks on every
+   chromosome (the production segment, 100,000 + halo 5,000, M=50 -> N=2400,
+   B=25, f32; cut to 10,000 + 1,000 while the site loops ran eagerly, PRs
+   4-8), with checks on every
    output file, logZ, the degenerate-step count, the kernel's launch count
    and the planted differentially methylated windows;
 8. ``infer --streaming_blocks 2048`` (runner.infer_segment, as the CLI
    calls it, with its per-block timings; ``--stream_block``) on the same
-   window and seed: 6 blocks (5 x 2,048 + 760). Every npz array equal to phase 7's bit for
+   window and seed: 52 blocks (51 x 2,048 + 552). Every npz array equal to phase 7's bit for
    bit, logZ within rtol 1e-5 of phase 7's, every block's re-run equal to
    its checkpoint, the kernel launched 2T - len_last - 2 times, peak
    max_memory_allocated below half of phase 7's; the device-to-host copy
@@ -84,9 +83,9 @@ Phases, each of which raises (exit code non-zero) when it fails:
    the same window, no degenerate step, T - 1 launches, the split
    probability higher inside the DMRs than outside;
 11. ``single_group.blocked.run_online_combined_inference_blocked`` on phase
-   5's 40,000 control CpGs at the CLI's defaults (N=250, M_cap=244, both
+   5's 105,000 control CpGs at the CLI's defaults (N=250, M_cap=244, both
    estimates on, f32), block 8,192 + halo 1,024 and a warmup of 8,192
-   sites (cut from the production 49,152 / 4,096 / 65,536 for time): 5
+   sites (cut from the production 49,152 / 4,096 / 65,536 for time): 13
    blocks, (Tw - 1) + (win - 1) launches (one launch serves every block),
    the warmup's theta trace equal to phase 6's first Tw rows bit for bit
    (the same generator), regime modes agreeing with phase 6's on more than
@@ -153,9 +152,11 @@ Phases, each of which raises (exit code non-zero) when it fails:
    ``--trace_buffer``), then the same call without it: npz arrays and logZ
    equal bit for bit; one trace file, its size; from the trace the CUDA
    kernels a site of the filter and of the backward pass (the
-   ``infer.filter`` and ``infer.backward`` ranges), K1's kernels equal to
-   the wrapper's count, the device's busy share of the traced window and
-   its busy time against the untraced run's filter and backward seconds;
+   ``infer.filter`` and ``infer.backward`` ranges), the CUDA graph replays
+   in each and their kernels a replayed site, K1's kernels equal to the
+   wrapper's count (which counts replays), the device's busy share of the
+   traced window and its busy time against the untraced run's filter and
+   backward seconds;
 18. ``runner.infer_chromosome_meshed`` at world 1 on a fifth seeded
    chromosome of 8,000 CpGs with planted DMRs (``--mesh_sites``), mesh 4x2
    on the one card (8 units in one chunk), segment 2,000 + halo 200 (cut
@@ -176,7 +177,16 @@ Phases, each of which raises (exit code non-zero) when it fails:
    on phase 12's preprocessed chromosome with phase 12's theta stage copied
    in, batches of 3,300 + 330 (cut for time; ``--mesh_run_batch``): INFER[mesh],
    aggregate and DMPs run, the sequential run's file set per batch, one
-   chunk's launches, weighted DMPs at least half in planted windows.
+   chunk's launches, weighted DMPs at least half in planted windows;
+21. the site loops as replayed CUDA graphs (ops/site_graphs.py, the path
+   every phase above takes) against the same loops run eagerly
+   (``sites_per_graph=0``) in this call: ``infer_segment`` monolithic and
+   streamed (segment 3,000 + 300, W = 1,024; ``--graph_sites``,
+   ``--graph_buffer``, ``--graph_stream_block``) on phase 5's chromosome,
+   phase 18's meshed halo run, and ``estimate_parameters_and_regimes`` on
+   the first 5,000 control CpGs (``--graph_sg_sites``): every npz array,
+   logZ file and CSV equal bit for bit, K1's launches equal; ms/site of
+   the loops and the peak memory of both.
 
 Phase 3b (after 3): the probe kernel (``csrc/probe.cu``, 2*x + max(x) in
 one block; replaces ``.round4/pallas_smoke.py:11``) through its wrapper on
@@ -194,6 +204,7 @@ from __future__ import annotations
 import argparse
 import ast
 import contextlib
+import gzip
 import io
 import json
 import math
@@ -1663,23 +1674,31 @@ def simulate_data_phase(device, root, n_sites, replicates=8, seed=0):
 def _trace_shares(path):
     """Counts and shares from a torch.profiler Chrome trace: CUDA kernels
     launched inside the ``infer.filter`` and ``infer.backward`` ranges (by
-    the correlation of each kernel with its launch call), K1's kernels, and
-    the device's busy share of the traced window (the union of kernel,
-    copy and set intervals over the span of all events)."""
+    the correlation of each kernel with its launch call), the CUDA graph
+    launches in each and the kernels those launched (a replayed graph's
+    kernels carry its launch's correlation), K1's kernels, and the
+    device's busy share of the traced window (the union of kernel, copy
+    and set intervals over the span of all events)."""
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     gpu = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
-                 if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})}
+    calls = [e for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})]
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in calls}
+    graph_calls = {e["args"]["correlation"] for e in calls if "GraphLaunch" in e["name"]}
     ranges = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
               if e.get("cat") == "user_annotation" and e["name"] in ("infer.filter", "infer.backward")}
     in_range = {name: 0 for name in ranges}
+    graph_kernels = {name: 0 for name in ranges}
+    graph_launches = {name: sum(lo <= launch_ts[c] <= hi for c in graph_calls) for name, (lo, hi) in ranges.items()}
     for k in kernels:
-        ts = launch_ts.get(k.get("args", {}).get("correlation"))
+        corr = k.get("args", {}).get("correlation")
+        ts = launch_ts.get(corr)
         for name, (lo, hi) in ranges.items():
             if ts is not None and lo <= ts <= hi:
                 in_range[name] += 1
+                graph_kernels[name] += corr in graph_calls
     lo = min(e["ts"] for e in events)
     hi = max(e["ts"] + e["dur"] for e in events)
     busy, end = 0.0, lo
@@ -1689,7 +1708,8 @@ def _trace_shares(path):
             end = e
     return {"events": len(events), "kernels": len(kernels),
             "k1_kernels": sum("optimal_resampling" in k["name"] for k in kernels),
-            "kernels_in_range": in_range, "ranges_us": {k: v[1] - v[0] for k, v in ranges.items()},
+            "kernels_in_range": in_range, "graph_launches_in_range": graph_launches,
+            "graph_kernels_in_range": graph_kernels, "ranges_us": {k: v[1] - v[0] for k, v in ranges.items()},
             "window_us": hi - lo, "busy_us": busy, "busy_share": busy / (hi - lo) if hi > lo else 0.0}
 
 
@@ -1744,6 +1764,12 @@ def trace_phase(device, root, data_dir, sg_dir, segment_size, buffer_size, seed=
           f"trace: {sh['k1_kernels']} K1 kernels in the trace, the wrapper counted {launches} (CUPTI records "
           "what the ctypes launch of the kernel puts on the stream only if it sees the launch)")
     per_site = {k: v / T for k, v in sh["kernels_in_range"].items()}
+    # Each loop steps its first site eagerly and replays the other T - 2.
+    check(set(sh["graph_launches_in_range"]) == {"infer.filter", "infer.backward"}
+          and all(v > 0 for v in sh["graph_launches_in_range"].values()),
+          f"trace: CUDA graph launches in the loops {sh['graph_launches_in_range']}")
+    replays_per_site = {k: v / (T - 2) for k, v in sh["graph_launches_in_range"].items()}
+    graph_kernels_per_site = {k: v / (T - 2) for k, v in sh["graph_kernels_in_range"].items()}
     # The profiler slows the host several times over, so the traced window's
     # busy share understates the untraced run's: set the device time the
     # trace holds against the untraced run's filter and backward seconds.
@@ -1754,11 +1780,15 @@ def trace_phase(device, root, data_dir, sg_dir, segment_size, buffer_size, seed=
     busy_untraced = sh["busy_us"] / 1e6 / loop_s
     stats = {"sites": T, "trace_bytes": size, "trace_bytes_per_site": size / T, "parse_s": parse_s,
              "wall_traced_s": wall_traced, "wall_plain_s": wall_plain, "kernels_per_site": per_site,
+             "graph_replays_per_site": replays_per_site, "graph_kernels_per_site": graph_kernels_per_site,
              "device_ms_per_site": sh["busy_us"] / 1e3 / T, "untraced_loops_s": loop_s,
              "busy_share_of_untraced_loops": busy_untraced, **sh}
     print(f"trace: T={T} one trace of {size} bytes ({size / T:.0f} a site, {sh['events']} events) parsed in "
           f"{parse_s:.2f} s; outputs equal to the untraced run's; CUDA kernels a site: "
-          f"{ {k: round(v, 2) for k, v in per_site.items()} }; K1 kernels in the trace {sh['k1_kernels']} = "
+          f"{ {k: round(v, 2) for k, v in per_site.items()} }; graph replays a replayed site "
+          f"{ {k: round(v, 4) for k, v in replays_per_site.items()} }, their kernels a replayed site "
+          f"{ {k: round(v, 2) for k, v in graph_kernels_per_site.items()} }; "
+          f"K1 kernels in the trace {sh['k1_kernels']} = "
           f"wrapper {launches}; device busy {sh['busy_us'] / 1e3:.2f} ms of a {sh['window_us'] / 1e3:.2f} ms "
           f"window ({100 * sh['busy_share']:.1f}%), {stats['device_ms_per_site']:.3f} ms a site, "
           f"{100 * busy_untraced:.1f}% of the untraced run's filter and backward {loop_s:.3f} s; wall traced "
@@ -1920,6 +1950,149 @@ def meshed_phase(device, root, n_sites, segment_size, buffer_size, seed=7):
     print(f"meshed: the params' rho tables (d_max = T + 1) built in "
           + ", ".join(f"{v:.3f} s at d_max {k}" for k, v in rho_s.items()))
     return stats, launches
+
+
+# ----------------------------------------------------- graphs vs eager ----
+
+def _same_files(a_dir, b_dir, what):
+    """Every .npz array, text and CSV file of a_dir equal to b_dir's (the
+    timing files, which differ by nature, left out; gzip files by their
+    contents)."""
+    import numpy as np
+
+    names = sorted(n for n in os.listdir(a_dir) if "time" not in n)
+    check(names == sorted(n for n in os.listdir(b_dir) if "time" not in n), f"{what}: other files")
+    for name in names:
+        pa, pb = os.path.join(a_dir, name), os.path.join(b_dir, name)
+        if name.endswith(".npz"):
+            a, b = np.load(pa)["arr_0"], np.load(pb)["arr_0"]
+            check(a.dtype == b.dtype and np.array_equal(a, b), f"{what}: {name} differs graphed and eager")
+        else:  # a gzip member's header holds its time: compare what it holds
+            read = gzip.open if name.endswith(".gz") else open
+            with read(pa, "rb") as fa, read(pb, "rb") as fb:
+                check(fa.read() == fb.read(), f"{what}: {name} differs graphed and eager")
+    return len(names)
+
+
+def graph_phase(device, root, data_dir, sg_dir, segment_size, buffer_size, stream_block, mesh_args, sg_sites,
+                seed=0):
+    """The site loops graphed (SITES_PER_GRAPH sites a CUDA graph, the
+    default) and eager (sites_per_graph=0) in this call, each pair on the
+    same inputs and generators: runner.infer_segment monolithic and streamed
+    (``stream_block``) on batch 0 of phase 5's chromosome (segment_size +
+    buffer_size), runner.infer_chromosome_meshed halo on phase 18's
+    chromosome and mesh, and single_group.runner.estimate_parameters_and_
+    regimes on the first ``sg_sites`` control CpGs of phase 5's chromosome
+    (the CLI's defaults, both estimates on). Every output file (npz arrays,
+    logZ files, CSVs) equal bit for bit, K1's launches equal, the engine's
+    logZ equal; ms/site of the loops (the filter and the backward pass
+    apart for infer and the meshed run) and peak memory of both. Returns
+    stats."""
+    import numpy as np
+    import torch
+    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
+    from hygeia_tpu_torch.ops.site_graphs import SITES_PER_GRAPH
+    from hygeia_tpu_torch.single_group.runner import estimate_parameters_and_regimes
+    from hygeia_tpu_torch.two_group.runner import infer_chromosome_meshed, infer_segment
+    from hygeia_tpu_torch.utils import io as hio
+
+    T, N = segment_size + buffer_size, 50 * (2 * R + R * R)
+    mesh_sites, mesh_seg, mesh_buf = mesh_args
+    sg_in = os.path.join(root, "single_group_input")
+    sub_in = os.path.join(root, "graph_sg_input")
+    read = lambda name: hio.read_headed_matrix(os.path.join(sg_in, name))[:, :sg_sites].astype(np.int64)
+    n_meth, n_total = read("n_methylated_reads_1.csv"), read("n_total_reads_1.csv")
+    positions = hio.read_headed_column(os.path.join(sg_in, "genomic_positions_1.csv"))[:sg_sites].astype(np.int64)
+    hio.write_headed_matrix(os.path.join(sub_in, "n_methylated_reads.csv"), n_meth, "sample")
+    hio.write_headed_matrix(os.path.join(sub_in, "n_total_reads.csv"), n_total, "sample")
+    hio.write_headed_column(os.path.join(sub_in, "genomic_positions.csv"), positions, "genomic_positions")
+
+    def infer(out, K, block=None):
+        return infer_segment(data_dir=data_dir, single_group_dir=sg_dir, results_dir=out, chrom="1", device=device,
+                             batch=0, seed=seed, segment_size=segment_size, buffer_size=buffer_size,
+                             streaming_blocks=block, sites_per_graph=K)
+
+    def meshed(out, K):
+        tim = {}
+        infer_chromosome_meshed(data_dir=data_dir, single_group_dir=sg_dir, results_dir=out, chrom="5",
+                                mesh_shape=MESH_SHAPE, device=device, boundary="halo", seed=MESH_SEEDS,
+                                segment_size=mesh_seg, buffer_size=mesh_buf, timings=tim, sites_per_graph=K)
+        return tim[N]
+
+    def engine(out, K):
+        os.makedirs(out, exist_ok=True)
+        files = {k: os.path.join(out, v) for k, v in (
+            ("regime_probabilities_csv_file", "regime_probs.csv"), ("theta_trace_csv_file", "theta_trace.csv"),
+            ("p_csv_file", "p.csv"), ("omega_csv_file", "omega.csv"), ("kappa_csv_file", "kappa.csv"),
+            ("theta_file", "theta.csv.gz"))}
+        return estimate_parameters_and_regimes(
+            n_methylated_reads_csv_file=os.path.join(sub_in, "n_methylated_reads.csv"),
+            n_total_reads_csv_file=os.path.join(sub_in, "n_total_reads.csv"),
+            genomic_positions_csv_file=os.path.join(sub_in, "genomic_positions.csv"), device=device,
+            n_particles=SG_N, estimate_parameters=True, estimate_regime_probabilities=True,
+            sites_per_graph=K, **files)
+
+    mesh_units = -(-max(1, -(-mesh_sites // mesh_seg)) // MESH_SHAPE[0]) * MESH_SHAPE[0] * len(MESH_SEEDS)
+    paths = {
+        "infer": (infer, "chrom_1_0", T),
+        "streamed": (lambda out, K: infer(out, K, stream_block), "chrom_1_0", T),
+        "meshed_halo": (meshed, None, (mesh_seg + 2 * mesh_buf)),
+        "engine": (engine, "", sg_sites),
+    }
+    stats = {"sites_per_graph": SITES_PER_GRAPH}
+    for name, (run, sub, sites) in paths.items():
+        got = {}
+        for label, K in (("graphed", SITES_PER_GRAPH), ("eager", 0)):
+            out = os.path.join(root, f"graph_{name}_{label}")
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(device)
+            KERNEL.launches = 0
+            _sync(device)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                res = run(out, K)
+            _sync(device)
+            wall = time.perf_counter() - t0
+            got[label] = {"out": out, "res": res, "wall_s": wall, "launches": KERNEL.launches,
+                          "peak": torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None}
+        g, e = got["graphed"], got["eager"]
+        check(g["launches"] == e["launches"], f"graphs {name}: K1 launched {g['launches']} times graphed, "
+                                              f"{e['launches']} eager")
+        split = None  # (filter s, backward s) by label
+        if name == "meshed_halo":
+            n_files = sum(_same_files(os.path.join(g["out"], d), os.path.join(e["out"], d), f"graphs {name} {d}")
+                          for d in sorted(os.listdir(g["out"])))
+            split = {lab: (got[lab]["res"]["filter_s"], got[lab]["res"]["backward_s"]) for lab in got}
+        else:
+            n_files = _same_files(os.path.join(g["out"], sub), os.path.join(e["out"], sub), f"graphs {name}")
+        if name == "infer":  # the runner's own filter and backward seconds
+            split = {}
+            for lab in got:
+                secs = []
+                for f in (f"optimal_time_{seed}.txt", f"optimal_time_backward_{seed}.txt"):
+                    with open(os.path.join(got[lab]["out"], sub, f)) as fh:
+                        secs.append(float(ast.literal_eval(fh.read())[N]))
+                split[lab] = tuple(secs)
+        loops = {lab: sum(split[lab]) if split else got[lab]["wall_s"] for lab in got}
+        if name == "engine":
+            for field in ("log_normalizing_constant", "regime_probs", "theta_trace", "final_theta"):
+                check(torch.equal(getattr(g["res"], field), getattr(e["res"], field)),
+                      f"graphs engine: {field} differs graphed and eager")
+        ms = {lab: 1e3 * loops[lab] / sites for lab in loops}
+        stats[name] = {"sites": sites, "units": mesh_units if name == "meshed_halo" else 1, "files_equal": n_files,
+                       "launches": g["launches"], "ms_per_site": ms, "speedup": ms["eager"] / ms["graphed"],
+                       "wall_s": {lab: got[lab]["wall_s"] for lab in got},
+                       "max_memory_allocated_bytes": {lab: got[lab]["peak"] for lab in got}}
+        if split:
+            stats[name]["filter_backward_ms_per_site"] = {
+                lab: [1e3 * x / sites for x in split[lab]] for lab in got}
+        print(f"graphs {name}: {sites} sites, {n_files} files equal bit for bit graphed and eager, "
+              f"launches={g['launches']} both; loops {ms['graphed']:.3f} ms/site graphed, {ms['eager']:.3f} eager "
+              f"({stats[name]['speedup']:.2f}x)"
+              + ("".join(f"; {lab} filter {1e3 * split[lab][0] / sites:.3f} + backward "
+                         f"{1e3 * split[lab][1] / sites:.3f} ms/site" for lab in got) if split else "")
+              + f"; max_memory_allocated {g['peak']} graphed, {e['peak']} eager")
+    return stats
 
 
 def _world2_rank(rank, rendezvous, kw, out_dir, N, device_str):
@@ -2094,10 +2267,10 @@ def mesh_run_phase(device, root, ctx, n_sites, batch_size, buffer_size, seeds=2)
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--chrom_sites", type=int, default=40_000,
-                    help="CpGs of the chromosome, all read by the single-group engine (default 40000)")
-    ap.add_argument("--sites", type=int, default=10_000, help="infer's segment size (default 10000)")
-    ap.add_argument("--buffer", type=int, default=1_000, help="infer's halo size (default 1000)")
+    ap.add_argument("--chrom_sites", type=int, default=105_000,
+                    help="CpGs of the chromosome, all read by the single-group engine (default 105000)")
+    ap.add_argument("--sites", type=int, default=100_000, help="infer's segment size (default 100000)")
+    ap.add_argument("--buffer", type=int, default=5_000, help="infer's halo size (default 5000)")
     ap.add_argument("--stream_block", type=int, default=2048,
                     help="the streamed phase's --streaming_blocks (default 2048)")
     ap.add_argument("--chrom2_sites", type=int, default=11_000,
@@ -2129,6 +2302,14 @@ def main(argv=None):
     ap.add_argument("--mesh_run_batch", type=int, default=3_300,
                     help="run --mesh's --batch_size on phase 12's chromosome (default 3300)")
     ap.add_argument("--mesh_run_buffer", type=int, default=330, help="run --mesh's --buffer_size (default 330)")
+    ap.add_argument("--graph_sites", type=int, default=3_000,
+                    help="the graphed-against-eager phase's infer segment (default 3000)")
+    ap.add_argument("--graph_buffer", type=int, default=300,
+                    help="the graphed-against-eager phase's infer halo (default 300)")
+    ap.add_argument("--graph_stream_block", type=int, default=1_024,
+                    help="the graphed-against-eager phase's --streaming_blocks (default 1024)")
+    ap.add_argument("--graph_sg_sites", type=int, default=5_000,
+                    help="CpGs of the graphed-against-eager phase's single-group engine (default 5000)")
     args = ap.parse_args(argv)
     if args.sites + args.buffer > args.chrom_sites:
         ap.error("the infer segment and halo must fit in the chromosome")
@@ -2138,6 +2319,10 @@ def main(argv=None):
         ap.error("the infer window must be longer than one streamed block")
     if args.trace_sites + args.trace_buffer > args.chrom_sites:
         ap.error("the traced segment and halo must fit in the chromosome")
+    if args.graph_sites + args.graph_buffer > args.chrom_sites or args.graph_sg_sites > args.chrom_sites:
+        ap.error("the graphed-against-eager phase's windows must fit in the chromosome")
+    if args.graph_sites + args.graph_buffer <= args.graph_stream_block:
+        ap.error("the graphed-against-eager phase's window must be longer than one streamed block")
 
     import torch
 
@@ -2202,6 +2387,9 @@ def main(argv=None):
                                              args.world2_buffer)
         mr_stats, mr_launches = mesh_run_phase(device, root, pl_ctx, args.pipeline_sites, args.mesh_run_batch,
                                                args.mesh_run_buffer)
+        gr_stats = graph_phase(device, root, data_dir, sg_dir, args.graph_sites, args.graph_buffer,
+                               args.graph_stream_block, (args.mesh_sites, args.mesh_segment, args.mesh_buffer),
+                               args.graph_sg_sites)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2290,7 +2478,7 @@ def main(argv=None):
         "streamed": st_stats, "chromosome": ch_stats, "robust": rb_stats, "blocked": bl_stats,
         "pipeline": pl_stats, "single_group_pipeline": sgp_stats, "marginal": mg_stats, "offpath": offpath,
         "simulate_two_groups": s2_stats, "simulate_data": sd_stats, "trace": tr_stats,
-        "meshed": ms_stats, "world2": w2_stats, "mesh_run": mr_stats,
+        "meshed": ms_stats, "world2": w2_stats, "mesh_run": mr_stats, "graphs": gr_stats,
         "smoke_s": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

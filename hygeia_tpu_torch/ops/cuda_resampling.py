@@ -66,13 +66,17 @@ def supports(n, m):
 
 class _Kernel:
     """The loaded library and the launch count. ``launches`` goes up by one
-    per kernel launch and nowhere else."""
+    per kernel launch, eager or replayed: the wrapper counts an eager
+    launch, and a CUDA graph's replay adds the launches its capture
+    recorded (ops/site_graphs.py). ``captured`` counts the launches that
+    captures recorded, which run only when replayed."""
 
     def __init__(self):
         self.lib = None
         self.build = None
         self.launch = None  # the C entry, argtypes set
         self.launches = 0
+        self.captured = 0
 
     def load(self):
         if self.lib is None:
@@ -167,7 +171,10 @@ def optimal_resampling_cuda(log_weights, num_offspring, u_sys, u_mult) -> Resamp
     if rc != 0:
         msg = KERNEL.lib.hygeia_cuda_error_string(rc).decode()
         raise RuntimeError(f"optimal_resampling kernel launch failed: {msg} ({rc})")
-    KERNEL.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        KERNEL.captured += 1  # recorded into a graph: counted at each replay
+    else:
+        KERNEL.launches += 1
     return ResampleResult(parents, log_c, bad, new_w, top_idx)
 
 

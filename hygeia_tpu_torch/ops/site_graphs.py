@@ -1,0 +1,130 @@
+"""Site loops as replayed CUDA graphs.
+
+The JAX package runs each site loop (the two-group filter, the backward
+pass, the single-group engine) as one compiled ``lax.scan``. This is the
+port's counterpart: on a CUDA device a loop captures K consecutive calls
+of its site step into a ``torch.cuda.CUDAGraph`` once and then replays the
+graph, K sites a replay (K plays the role of JAX's ``unroll``). On the CPU,
+and on the card with K = 0 (a route kept only to compare the two), the
+same step is called eagerly, one site a call.
+
+A step is a function of no arguments that a replay can repeat:
+- it reads its site from a device index tensor that it advances itself
+  (``add_`` / ``sub_``), never from a Python int;
+- its carry lives in tensors made before the loop, which it overwrites in
+  place (``copy_``, ``index_copy_``); rebinding a name would leave the next
+  replay reading the capture's memory;
+- it never waits for the device (no ``.item()``, no boolean-mask
+  indexing, no ``nonzero``) and copies nothing from the host;
+- its draws come from the ``torch.Generator``s given to the loop, which
+  are registered with every graph, so a replay advances each generator as
+  the eager draws would: a graphed run draws the eager run's numbers.
+
+The first site of each kind of step runs eagerly before that kind is
+captured (the resampler's wrapper opts in to shared memory at its first
+launch, cuBLAS makes its handle). Sites that do not fill a last group of K
+replay a one-site graph of the same step. Every graph of a loop shares one
+memory pool; the loop's graphs are freed when it ends. A failed capture
+or replay raises; nothing falls back to the eager route.
+
+K1's launch count counts executions: its wrapper counts the launches a
+capture records apart (``KERNEL.captured``), and each replay adds its
+graph's count to ``KERNEL.launches``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
+
+# Sites a graph: JAX's filter unroll (hygeia_tpu/two_group/filter.py).
+SITES_PER_GRAPH = 8
+# One side stream a device for every loop: cuBLAS keeps a workspace for
+# each stream it runs on (32 MiB on an H100), so a new stream a loop would
+# hold one more workspace a loop.
+_STREAMS = {}
+
+
+def _loop_stream(device):
+    if device.index not in _STREAMS:
+        _STREAMS[device.index] = torch.cuda.Stream(device)
+    return _STREAMS[device.index]
+
+
+class SiteLoop:
+    """A context for one site loop on ``device``.
+
+    ``run(step, n, kind)`` calls ``step`` n times in effect: eagerly on the
+    CPU or with ``sites_per_graph`` 0; on a CUDA device through graphs of
+    K and of one site, captured at the first call of their ``kind`` (a
+    hashable naming a step whose host-side branches hold for every site it
+    is called on). Work between ``run`` calls (eager sites of another kind)
+    runs on the loop's stream too. ``generator``: what the steps draw
+    from, one ``torch.Generator``, a list of them or None (the default
+    generator)."""
+
+    def __init__(self, device, sites_per_graph=SITES_PER_GRAPH, generator=None):
+        if int(sites_per_graph) != sites_per_graph or sites_per_graph < 0:
+            raise ValueError("sites_per_graph must be an int >= 0 (0: eager on the card), "
+                             f"got {sites_per_graph!r}")
+        self.device = torch.device(device)
+        self.K = int(sites_per_graph)
+        self.graphed = self.device.type == "cuda" and self.K > 0
+        gens = generator if isinstance(generator, (list, tuple)) else [generator]
+        self.generators = [g for g in gens if g is not None]
+        self.graphs = {}  # (kind, sites) -> (graph, K1 launches a replay)
+        self.warm = set()
+        self._pool = self._stream = self._ctx = None
+
+    def __enter__(self):
+        if self.device.type == "cuda":
+            # Capture needs a side stream; the whole loop runs on it.
+            if self.device.index is None:
+                self.device = torch.device("cuda", torch.cuda.current_device())
+            self._stream = _loop_stream(self.device)
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+            self._ctx = torch.cuda.stream(self._stream)
+            self._ctx.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self._ctx is not None:
+            self._ctx.__exit__(*exc)
+            torch.cuda.current_stream(self.device).wait_stream(self._stream)
+        self.graphs.clear()  # frees the graphs and their pool
+        self._pool = self._ctx = None
+        return False
+
+    def run(self, step, n, kind="site"):
+        n = int(n)
+        if not self.graphed:
+            for _ in range(n):
+                step()
+            return
+        if n > 0 and kind not in self.warm:
+            step()
+            self.warm.add(kind)
+            n -= 1
+        full, rest = divmod(n, self.K)
+        for sites, reps in ((self.K, full), (1, rest)):
+            if reps:
+                graph, launches = self._graph(step, kind, sites)
+                for _ in range(reps):
+                    graph.replay()
+                    KERNEL.launches += launches
+
+    def _graph(self, step, kind, sites):
+        key = (kind, sites)
+        if key not in self.graphs:
+            graph = torch.cuda.CUDAGraph()
+            for g in self.generators:
+                graph.register_generator_state(g)
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            before = KERNEL.captured
+            with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
+                for _ in range(sites):
+                    step()
+            self.graphs[key] = (graph, KERNEL.captured - before)
+        return self.graphs[key]

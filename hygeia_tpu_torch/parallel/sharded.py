@@ -54,6 +54,7 @@ import torch
 import torch.distributed as dist
 
 from hygeia_tpu_torch.ops.emissions import emission_log_prob_table, robust_emission_log_prob_table
+from hygeia_tpu_torch.ops.site_graphs import SITES_PER_GRAPH
 from hygeia_tpu_torch.two_group.backward import backward_simulation, backward_simulation_conditioned
 from hygeia_tpu_torch.two_group.filter import run_filter
 from hygeia_tpu_torch.two_group.proposal import num_children
@@ -196,6 +197,7 @@ def sharded_two_group_inference(
     robust_beta=None,
     max_units_per_call=None,
     timings=None,
+    sites_per_graph=SITES_PER_GRAPH,
 ):
     """Run the whole chromosome's units over the mesh.
 
@@ -213,7 +215,9 @@ def sharded_two_group_inference(
     the seconds of the tables, the filter sweeps, the backward sweeps and
     the messages ("tables_s", "filter_s", "backward_s", "messages_s"), the
     rank's chunk sizes ("chunks") and, on rank 0, the degenerate filter
-    steps per unit ("degenerate", log_z's shape)."""
+    steps per unit ("degenerate", log_z's shape). ``sites_per_graph``: the
+    site loops' sites a CUDA graph on the card (0: eagerly, only to compare
+    the two)."""
     if boundary not in ("halo", "exchange"):
         raise ValueError(f"unknown boundary scheme: {boundary!r}")
     if mesh.world > 1 and not dist.is_initialized():
@@ -268,10 +272,10 @@ def sharded_two_group_inference(
     tim["chunks"] = [len(c) for c in chunks]
     if boundary == "halo":
         traj, log_z, degen = _run_halo(params, E_c, E_k, chunks, seeds, segment_size, buffer_size, M, B, base_key,
-                                       weight_dtype, phantom_regime, tim)
+                                       weight_dtype, phantom_regime, tim, sites_per_graph)
     else:
         traj, log_z, degen = _run_exchange(mesh, params, E_c, E_k, chunks, all_units, seeds, buffer_size, M, B,
-                                           base_key, bpd, weight_dtype, phantom_regime, tim)
+                                           base_key, bpd, weight_dtype, phantom_regime, tim, sites_per_graph)
 
     # Results to rank 0: trajectories, then logZ and the degenerate counts
     # as one float64 tensor (both exact in it).
@@ -298,7 +302,7 @@ def sharded_two_group_inference(
     return out, lz
 
 
-def _run_halo(params, E_c, E_k, chunks, seeds, seg, buf, M, B, base_key, weight_dtype, phantom_regime, tim):
+def _run_halo(params, E_c, E_k, chunks, seeds, seg, buf, M, B, base_key, weight_dtype, phantom_regime, tim, K):
     """Each chunk's (block, seed) units: filter, backward simulation, halo
     trimmed on the device. Returns the rank's (trajectories (U_r, seg, B, 5)
     int32 numpy, logZ (U_r,), degenerate steps (U_r,))."""
@@ -310,10 +314,11 @@ def _run_halo(params, E_c, E_k, chunks, seeds, seg, buf, M, B, base_key, weight_
         gens_b = [unit_generator(dev, BACKWARD, base_key, b, seeds[s]) for b, s in chunk]
         t0 = time.perf_counter()
         res = run_filter(params, E_c.index_select(0, idx), E_k.index_select(0, idx), M, n_units=len(chunk),
-                         generator=gens_f, weight_dtype=weight_dtype, phantom_regime=phantom_regime)
+                         generator=gens_f, weight_dtype=weight_dtype, phantom_regime=phantom_regime,
+                         sites_per_graph=K)
         _sync(dev)
         t1 = time.perf_counter()
-        traj = backward_simulation(params, res.log_weights, res.particles, B, generator=gens_b)
+        traj = backward_simulation(params, res.log_weights, res.particles, B, generator=gens_b, sites_per_graph=K)
         trajs.append(traj[:, buf : buf + seg].cpu().numpy())
         log_zs.append(res.log_normalizing_constant.cpu())
         degens.append(res.degenerate_steps.cpu())
@@ -325,7 +330,7 @@ def _run_halo(params, E_c, E_k, chunks, seeds, seg, buf, M, B, base_key, weight_
 
 
 def _run_exchange(mesh, params, E_c, E_k, chunks, all_units, seeds, buf, M, B, base_key, bpd, weight_dtype,
-                  phantom_regime, tim):
+                  phantom_regime, tim, K):
     """The four exchange phases over the rank's (window, seed) units, chunk
     by chunk; the messages between the phases. With one chunk the main
     filter's history is kept for round 2; with more it is freed after round
@@ -363,7 +368,7 @@ def _run_exchange(mesh, params, E_c, E_k, chunks, all_units, seeds, buf, M, B, b
         r = rows(chunk)
         res = run_filter(params, E_c.index_select(0, r)[:, win - W :], E_k.index_select(0, r)[:, win - W :], M,
                          n_units=len(chunk), generator=gens(WARMUP, chunk), weight_dtype=weight_dtype,
-                         phantom_regime=phantom_regime, return_history=False)
+                         phantom_regime=phantom_regime, return_history=False, sites_per_graph=K)
         warm_lw.append(res.log_weights)
         warm_parts.append(torch.stack(res.particles, dim=1))
         warm_degen.append(res.degenerate_steps)
@@ -384,10 +389,11 @@ def _run_exchange(mesh, params, E_c, E_k, chunks, all_units, seeds, buf, M, B, b
         saved.append([g.get_state() for g in g_main])
         t0 = time.perf_counter()
         res = _main_filter(params, E_c, E_k, chunk, rows(chunk), M, g_main, recv_lw[sl], recv_parts[sl],
-                           weight_dtype, phantom_regime)
+                           weight_dtype, phantom_regime, K)
         _sync(dev)
         t1 = time.perf_counter()
-        traj1 = backward_simulation(params, res.log_weights, res.particles, B, generator=gens(BACKWARD, chunk))
+        traj1 = backward_simulation(params, res.log_weights, res.particles, B, generator=gens(BACKWARD, chunk),
+                                    sites_per_graph=K)
         firsts.append(traj1[:, 0])
         for i, (g, s) in enumerate(chunk):
             if g == n_genome - 1:  # the last shard keeps round 1's draws
@@ -420,12 +426,12 @@ def _run_exchange(mesh, params, E_c, E_k, chunks, all_units, seeds, buf, M, B, b
             for g, st in zip(g_main, saved[c]):
                 g.set_state(st)
             res = _main_filter(params, E_c, E_k, chunk, rows(chunk), M, g_main, recv_lw[sl], recv_parts[sl],
-                               weight_dtype, phantom_regime)
+                               weight_dtype, phantom_regime, K)
             _sync(dev)
         t1 = time.perf_counter()
         traj = backward_simulation_conditioned(
             params, res.log_weights, res.particles, recv_t[sl],
-            torch.as_tensor(use_term, device=dev), generator=gens(BACKWARD2, chunk))
+            torch.as_tensor(use_term, device=dev), generator=gens(BACKWARD2, chunk), sites_per_graph=K)
         del res
         traj = traj.cpu().numpy()
         for i, u in enumerate(chunk):
@@ -439,9 +445,9 @@ def _run_exchange(mesh, params, E_c, E_k, chunks, all_units, seeds, buf, M, B, b
 
 
 def _main_filter(params, E_c, E_k, chunk, rows, M, generators, init_lw, init_parts, weight_dtype,
-                 phantom_regime):
+                 phantom_regime, K):
     """The exchange scheme's main filter over a chunk's windows: warm from
     the received state, cold on shard 0."""
     return run_filter(params, E_c.index_select(0, rows), E_k.index_select(0, rows), M, n_units=len(chunk),
                       generator=generators, weight_dtype=weight_dtype, phantom_regime=phantom_regime,
-                      init_state=(init_lw, init_parts), use_init=[g > 0 for g, _ in chunk])
+                      init_state=(init_lw, init_parts), use_init=[g > 0 for g, _ in chunk], sites_per_graph=K)

@@ -3,8 +3,8 @@ adaptive-lag marginal smoothing and online score-based parameter
 estimation, one site at a time.
 
 Counterpart of hygeia_tpu/single_group/engine.py, batched over U units
-written out as a leading axis (the JAX package vmaps them). The site loop
-is a Python ``for`` that never waits for the device:
+written out as a leading axis (the JAX package vmaps them). The site
+step never waits for the device:
 
 * what JAX traced as a branch on the step index (the particle-count
   schedule, ``t % steps_per_update == 0``, the last step) is a Python
@@ -12,7 +12,16 @@ is a Python ``for`` that never waits for the device:
 * what depends on the data (the resampler's fallback, the free smoothing
   slot, the oldest pending entry, which entries finalise) stays a tensor
   under ``torch.where`` and indexed writes, with no ``.item()``, no
-  boolean-mask indexing and no ``nonzero``.
+  boolean-mask indexing and no ``nonzero``;
+* the site's value is read from a device index (``_Engine.t_dev``) that
+  the step advances, and every tensor of the state (and the tables the
+  step reads) is overwritten in place.
+
+So on a CUDA device the steady-state site (at capacity, not an update
+site, not a site where entries finalise, not the last) runs as a replayed
+CUDA graph of K sites (ops/site_graphs.py, the counterpart of JAX's
+``lax.scan``), and sites past the first t_limit under a graph of their
+own; every other site, and every site on the CPU, runs eagerly.
 
 Layout of the N particle slots at step t (as in JAX): continuations
 [0, m_t), the R fresh change-point particles [m_t, m_t + R), dead slots
@@ -45,6 +54,7 @@ import numpy as np
 import torch
 
 from hygeia_tpu_torch.ops.cuda_resampling import optimal_resampling
+from hygeia_tpu_torch.ops.site_graphs import SITES_PER_GRAPH, SiteLoop
 from hygeia_tpu_torch.single_group.model import SingleGroupModel, build_tables
 
 _NEG_INF = float("-inf")
@@ -189,16 +199,41 @@ class _Engine:
             score=zeros_ud.clone(), shifts=shifts, trace=trace,
             adam_iter=adam_iter, next_t=1,
         )
+        self.t_dev = torch.ones((1,), dtype=torch.int64, device=dev)  # the next step's site
+        # A value written by index: a Python True would be copied from the
+        # host, which a capture refuses.
+        self.true = torch.ones((), dtype=torch.bool, device=dev)
+        self.log_P = self.P = self.haz = None
         self._set_tables(build_tables(model, theta))
 
     def _set_tables(self, tables):
-        """Keep the tables and a (U, n_haz, R * W) stack of the per-particle
-        lookups (rho, exit as 0/1, grad omega[, grad kappa]) for one gather."""
-        self.tables = tables
+        """Keep log P, P and a (U, n_haz, R * W) stack of the per-particle
+        lookups (rho, exit as 0/1, grad omega[, grad kappa]) for one
+        gather; after the first call written in place, where a captured
+        step reads them."""
         parts = [tables.rho, tables.exit_status.to(self.dtype), tables.grad_omega_log_rho]
         if not self.model.kappa_fixed:
             parts.append(tables.grad_kappa_log_rho)
-        self.haz = torch.stack(parts, dim=1).reshape(self.U, self.n_haz, -1)
+        haz = torch.stack(parts, dim=1).reshape(self.U, self.n_haz, -1)
+        if self.haz is None:
+            self.log_P, self.P, self.haz = tables.log_P, tables.P, haz
+        else:
+            self.log_P.copy_(tables.log_P)
+            self.P.copy_(tables.P)
+            self.haz.copy_(haz)
+
+    def kind(self, t):
+        """The graph that site t runs under on a CUDA device: "steady", or
+        "frozen" past the first t_limit; None for a site that runs eagerly
+        (the growth phase, an update site, a site where entries finalise,
+        the last site, a progress line)."""
+        R, N, cfg = self.R, self.N, self.config
+        if (min(R * t, N) + R <= N or t == self.T - 1
+                or (cfg.estimate_parameters and t % cfg.steps_per_update == 0)
+                or (self.final_at is not None and t in self.final_at)
+                or (cfg.progress_every and t % cfg.progress_every == 0)):
+            return None
+        return "steady" if t < self.t_freeze else "frozen"
 
     def _lookup(self, d_prev, r_prev):
         """(U, n_haz, N) table values at each particle's (sojourn, regime);
@@ -208,17 +243,19 @@ class _Engine:
         return self.haz.gather(2, idx[:, None, :].expand(-1, self.n_haz, -1))
 
     def step(self, t, u_sys, u_mult):
-        """Advance the state from site t - 1 to site t (1 <= t < T)."""
+        """Advance the state from site t - 1 to site t (1 <= t < T). The
+        host's t picks the branches; the site's value comes from
+        ``t_dev``, which holds t and is advanced at the end, so a step
+        captured at one site of a ``kind`` replays every site of it."""
         st, cfg = self.state, self.config
         U, R, N, M, S, D, T = self.U, self.R, self.N, self.M, self.S, self.D, self.T
         dtype, dev, model = self.dtype, self.device, self.model
+        t_dev = self.t_dev
         d_prev, r_prev, w_prev = st["d"], st["r"], st["w"]
         live = None
         if t >= self.t_freeze:  # some unit is past its t_limit: keep its state
-            live = self.live[t]
-            old = {k: st[k] for k in _FROZEN}
-            for k in ("psi_time", "psi_valid", "spill"):  # updated in place below
-                old[k] = st[k].clone()
+            live = self.live.index_select(0, t_dev)[0]
+            old = {k: st[k].clone() for k in _FROZEN}
 
         # Deterministic particle-count schedule.
         n_prev = min(R * t, N)
@@ -251,7 +288,7 @@ class _Engine:
         d_new = torch.cat([d_a + 1, torch.ones_like(fresh_r), zeros_dead], dim=1)
         r_new = torch.cat([r_a, fresh_r, zeros_dead], dim=1)
 
-        obs_t = self.emissions[:, t]  # (U, R)
+        obs_t = self.emissions.index_select(1, t_dev)[:, 0]  # (U, R)
         # Guard rho <= 1: near the latch rho can exceed 1 numerically.
         cont_lp = torch.where(exit_a | (rho_a > 1.0), _NEG_INF, torch.log1p(-rho_a))
         w_cont = anc_w + (cont_lp + obs_t.gather(1, r_a))
@@ -262,7 +299,7 @@ class _Engine:
         r_idx = torch.clamp(r_prev, 0, R - 1)
         log_rho_term = torch.where(exit_p, 0.0, torch.log(rho_p))
         valid = (self.regimes[None, :, None] != r_prev[:, None, :]) & (d_prev >= model.u)[:, None, :]
-        log_p_qn = self.tables.log_P.gather(1, r_idx[:, :, None].expand(-1, -1, R)).transpose(1, 2)
+        log_p_qn = self.log_P.gather(1, r_idx[:, :, None].expand(-1, -1, R)).transpose(1, 2)
         cp_lp = torch.where(valid, log_rho_term[:, None, :] + log_p_qn, _NEG_INF)  # (U, R, N)
         safe_prev_w = torch.where(torch.isfinite(w_prev), w_prev, _NEG_INF)
         log_b = cp_lp + safe_prev_w[:, None, :]
@@ -276,7 +313,7 @@ class _Engine:
         shift = torch.logsumexp(w_new, dim=-1)
         w_new = w_new - shift[:, None]
         w_self = torch.where(torch.isfinite(w_new), torch.exp(w_new), 0.0)
-        st["shifts"][:, t] = shift if live is None else torch.where(live, shift, 0.0)
+        st["shifts"].index_copy_(1, t_dev, (shift if live is None else torch.where(live, shift, 0.0))[:, None])
 
         # ---- adaptive-lag marginal smoothing --------------------------------
         if cfg.estimate_regimes:
@@ -290,15 +327,17 @@ class _Engine:
         updated = False
         if cfg.estimate_parameters:
             updated = self._estimate(t, trio, trio_a, r_idx, r_a, anc, b, valid, w_self, m_t)
-        st["d"], st["r"], st["w"] = d_new, r_new, w_new
+        st["d"].copy_(d_new)
+        st["r"].copy_(r_new)
+        st["w"].copy_(w_new)
         if live is not None:
             for k, v in old.items():
                 keep = live.view(U, *([1] * (v.dim() - 1)))
-                st[k] = torch.where(keep, st[k], v)
+                st[k].copy_(torch.where(keep, st[k], v))
         if updated:
             self._set_tables(build_tables(model, st["theta"]))
-        st["trace"][:, t] = st["theta"]
-        st["next_t"] = t + 1
+        st["trace"].index_copy_(1, t_dev, st["theta"][:, None])
+        t_dev.add_(1)
         if cfg.progress_every and t % cfg.progress_every == 0:
             print(f"single-group engine: step {t}", flush=True)
 
@@ -341,13 +380,13 @@ class _Engine:
         if live is not None:
             spill_time = torch.where(live, spill_time, T)
         st["out"][units, spill_time] = means_pre[units, ins].float()
-        st["out_valid"][units, spill_time] = True
+        st["out_valid"].index_put_((units, spill_time), self.true)
 
         alive = torch.arange(self.N, device=self.device) < m_t + R
         test_t = ((r_new[:, None, :] == self.regimes[None, :, None]) & alive).to(self.dtype)
         psi_new[units, ins] = test_t
-        psi_time[units, ins] = t
-        psi_valid[units, ins] = True
+        psi_time.index_put_((units, ins), self.t_dev.expand(U))
+        psi_valid.index_put_((units, ins), self.true)
 
         # Finalise the entries whose R variances all fall below epsilon,
         # every entry at the last step, and (counted as spills) those that
@@ -359,7 +398,7 @@ class _Engine:
         if final is True:
             fin = psi_valid
         else:
-            aged = psi_time <= t - S
+            aged = psi_time <= self.t_dev - S
             forced = aged & ~all_below
             if final is not False:  # the units whose t_limit ends here finalise everything
                 forced = forced & ~final[:, None]
@@ -369,8 +408,9 @@ class _Engine:
         written = fin if live is None else fin & live[:, None]
         times = torch.where(written, psi_time, T)  # entries that stay pending write row T
         st["out"][units[:, None], times] = means.float()
-        st["out_valid"][units[:, None], times] = True
-        st["psi"], st["psi_valid"] = psi_new, psi_valid & ~fin
+        st["out_valid"].index_put_((units[:, None], times), self.true)
+        st["psi"].copy_(psi_new)
+        psi_valid.copy_(psi_valid & ~fin)
 
     def _estimate(self, t, trio, trio_a, r_idx, r_a, anc, b, valid, w_self, m_t):
         st, cfg, model = self.state, self.config, self.model
@@ -393,7 +433,7 @@ class _Engine:
         base.scatter_(2, (om_col + r_idx)[..., None], trio[:, 2, :, None])
         if not model.kappa_fixed:
             base.scatter_(2, (ka_col + r_idx)[..., None], trio[:, 3, :, None])
-        rows_p = self.tables.P.gather(1, r_idx[:, :, None].expand(-1, -1, R))  # (U, N, R)
+        rows_p = self.P.gather(1, r_idx[:, :, None].expand(-1, -1, R))  # (U, N, R)
         eye = torch.eye(R, dtype=self.dtype, device=self.device)
         vals = eye[None, :, None, :] - rows_p[:, None]  # (U, Q, N, R)
         onehot_p = self.scat_p[r_idx]  # (U, N, R, D)
@@ -405,7 +445,8 @@ class _Engine:
         grad_term = torch.cat([g_cont, g_fresh, g_cont.new_zeros((U, n_dead, D))], dim=1)
         phi = self._mix(st["phi"], anc, b, m_t, axis=1) + grad_term
         score = (w_self[:, None, :] @ phi)[:, 0]  # (U, D)
-        st["phi"], st["score"] = phi, score
+        st["phi"].copy_(phi)
+        st["score"].copy_(score)
 
         if t % cfg.steps_per_update != 0:
             return False
@@ -418,15 +459,16 @@ class _Engine:
             v2 = _ADAM_B2 * st["adam_v"] + (1 - _ADAM_B2) * gradient * gradient
             delta = (lr * m2 / (torch.sqrt(v2 / (1.0 - _ADAM_B2**it1)) + _ADAM_EPS)
                      / (1.0 - _ADAM_B1**it1))
-            st["adam_m"], st["adam_v"] = m2, v2
+            st["adam_m"].copy_(m2)
+            st["adam_v"].copy_(v2)
         else:
             g = gradient
             if cfg.normalise_gradients:
                 g = g / torch.clamp(g.abs().sum(dim=-1, keepdim=True), min=1e-30)
             delta = lr * g
-        st["theta"] = st["theta"] + delta
-        st["adam_iter"] = it + 1
-        st["grad_prev"] = score
+        st["theta"].copy_(st["theta"] + delta)
+        it.copy_(it + 1)
+        st["grad_prev"].copy_(score)
         return True
 
     def result(self) -> EngineResult:
@@ -454,25 +496,37 @@ class _Engine:
         os.replace(tmp, path)
 
     def load(self, ck, generator=None):
-        """Take the state from an opened checkpoint."""
+        """Take the state from an opened checkpoint, into the state's own
+        tensors."""
         for k, v in self.state.items():
             if torch.is_tensor(v):
-                self.state[k] = torch.as_tensor(ck[k], device=self.device)
+                v.copy_(torch.as_tensor(ck[k]))
             else:
                 self.state[k] = int(ck[k])
+        self.t_dev.fill_(self.state["next_t"])
         if generator is not None and "generator_state" in ck:
             generator.set_state(torch.as_tensor(ck["generator_state"]))
         self._set_tables(build_tables(self.model, self.state["theta"]))
 
 
-def _site_uniforms(t, n_units, n_offspring, u_sys, u_mult, generator, device, shared=False):
-    """(u_sys (U,), u_mult (U, M)) of site t: the injected draws when given
-    (row t - 1), else fresh ones from ``generator``; with ``shared`` one
-    unit's draws for every unit (those of a one-unit run on the same
+def _site_draws(eng, u_sys, u_mult, generator, shared=False):
+    """A function of no arguments (a captured step calls it) that gives
+    (u_sys (U,), u_mult (U, M)) of the engine's next site t: the injected
+    draws' row t - 1, read at the device index ``eng.t_dev``, when given,
+    else fresh draws from ``generator`` (see ``_site_uniforms``)."""
+    if u_sys is not None:
+        def injected():
+            row = eng.t_dev - 1
+            return u_sys.index_select(0, row)[0], u_mult.index_select(0, row)[0]
+        return injected
+    return lambda: _site_uniforms(eng.U, eng.M, generator, eng.device, shared)
+
+
+def _site_uniforms(n_units, n_offspring, generator, device, shared=False):
+    """Fresh (u_sys (U,), u_mult (U, M)) from ``generator``; with ``shared``
+    one unit's draws for every unit (those of a one-unit run on the same
     generator); with a list of U generators unit u draws from generator u
     what a one-unit run on it draws."""
-    if u_sys is not None:
-        return u_sys[t - 1], u_mult[t - 1]
     if isinstance(generator, (list, tuple)):
         draws = [(torch.rand((1,), generator=g, device=device),
                   torch.rand((1, n_offspring), generator=g, device=device)) for g in generator]
@@ -502,6 +556,23 @@ def _check_uniforms(T, U, M, u_sys, u_mult, generator, device):
     return u_sys.contiguous(), u_mult.contiguous()
 
 
+def _run_sites(eng, loop, start, stop, draws):
+    """Sites start..stop-1: each maximal run of sites of one graph ``kind``
+    through ``loop`` (replays on the card), the others eagerly."""
+    t = start
+    while t < stop:
+        kind = eng.kind(t)
+        end = t + 1
+        if kind is None:
+            eng.step(t, *draws())
+        else:
+            while end < stop and eng.kind(end) == kind:
+                end += 1
+            loop.run(lambda t=t: eng.step(t, *draws()), end - t, kind)
+        t = end
+    eng.state["next_t"] = stop
+
+
 def run_online_combined_inference(
     model: SingleGroupModel,
     theta_init,
@@ -516,6 +587,7 @@ def run_online_combined_inference(
     weight_dtype=torch.float32,
     adam_init=None,
     t_limit=None,
+    sites_per_graph: int = SITES_PER_GRAPH,
 ) -> EngineResult:
     """Run the combined algorithm over the T sites for ``n_units`` units.
 
@@ -538,12 +610,14 @@ def run_online_combined_inference(
 
     Per site, as the reference's OnlineCombinedInference::run: SMC step,
     backward kernels, smoothing update, parameter-estimation update.
+    ``sites_per_graph``: sites a CUDA graph on the card (0: every site
+    eagerly, only to compare the two; the same bits either way).
     """
     eng = _Engine(model, theta_init, emissions, config, n_units, weight_dtype, adam_init, t_limit)
     u_sys, u_mult = _check_uniforms(eng.T, eng.U, eng.M, u_sys, u_mult, generator, eng.device)
-    for t in range(1, eng.T):
-        eng.step(t, *_site_uniforms(t, eng.U, eng.M, u_sys, u_mult, generator, eng.device,
-                                    shared_draws))
+    draws = _site_draws(eng, u_sys, u_mult, generator, shared_draws)
+    with SiteLoop(eng.device, sites_per_graph, generator) as loop:
+        _run_sites(eng, loop, 1, eng.T, draws)
     return eng.result()
 
 
@@ -561,6 +635,7 @@ def run_online_combined_inference_chunked(
     u_sys=None,
     u_mult=None,
     weight_dtype=torch.float32,
+    sites_per_graph: int = SITES_PER_GRAPH,
 ) -> EngineResult:
     """The same run with a checkpoint every ``chunk_size`` sites.
 
@@ -578,13 +653,14 @@ def run_online_combined_inference_chunked(
             if int(ck["version"]) == _CHECKPOINT_VERSION and int(ck["T"]) == eng.T:
                 eng.load(ck, generator if u_sys is None else None)
     t = eng.state["next_t"]
-    while t < eng.T:
-        stop = min(t + chunk_size, eng.T)
-        for s in range(t, stop):
-            eng.step(s, *_site_uniforms(s, eng.U, eng.M, u_sys, u_mult, generator, eng.device))
-        t = stop
-        if checkpoint_path and t < eng.T:
-            eng.save(checkpoint_path, generator if u_sys is None else None)
+    draws = _site_draws(eng, u_sys, u_mult, generator)
+    with SiteLoop(eng.device, sites_per_graph, generator) as loop:
+        while t < eng.T:
+            stop = min(t + chunk_size, eng.T)
+            _run_sites(eng, loop, t, stop, draws)
+            t = stop
+            if checkpoint_path and t < eng.T:
+                eng.save(checkpoint_path, generator if u_sys is None else None)
     if checkpoint_path and os.path.exists(checkpoint_path):
         os.remove(checkpoint_path)
     return eng.result()

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from hygeia_tpu_torch.ops.emissions import emission_log_prob_table
+from hygeia_tpu_torch.ops.site_graphs import SITES_PER_GRAPH
 from hygeia_tpu_torch.single_group.engine import EngineConfig, run_online_combined_inference
 from hygeia_tpu_torch.single_group import simulate as sg_simulate
 from hygeia_tpu_torch.single_group.model import make_model, parameters_to_theta, theta_to_parameters
@@ -63,6 +64,7 @@ def estimate_parameters_and_regimes(
     smoothing_window=128,
     weight_dtype=torch.float32,
     progress_every=0,
+    sites_per_graph=SITES_PER_GRAPH,
 ):
     """Run the single-group engine on one chromosome's headed count files
     on ``device`` and write the requested outputs. Returns the
@@ -72,7 +74,9 @@ def estimate_parameters_and_regimes(
     a CPU ``torch.Generator`` seeded with ``rng_seed`` (the JAX package
     draws it with ``jax.random.normal``, so the two start from different
     theta); the resampler's uniforms come from a generator on ``device``
-    seeded with ``rng_seed``."""
+    seeded with ``rng_seed``. ``sites_per_graph``: the engine's steady
+    sites a CUDA graph on the card (0: eagerly, only to compare the two;
+    the same files either way)."""
     device = torch.device(device)
     mu = np.asarray(mu, np.float64)
     R = len(mu)
@@ -110,7 +114,7 @@ def estimate_parameters_and_regimes(
     res = run_online_combined_inference(
         model, theta_init, E, cfg, n_units=1,
         generator=torch.Generator(device=device).manual_seed(int(rng_seed)),
-        weight_dtype=weight_dtype,
+        weight_dtype=weight_dtype, sites_per_graph=sites_per_graph,
     )
 
     if estimate_regime_probabilities and regime_probabilities_csv_file:

@@ -7,8 +7,10 @@ sampling ancestors from the backward kernel
     B_t(b, n)  propto  w_t^n * f(x_{t+1}^b | x_t^n)
 
 with one Gumbel-max categorical draw per (unit, trajectory) row. The reverse
-walk is a Python loop over the sites with no host synchronisation. Dead
-slots are excluded by their -inf weights.
+walk is a site step with no host synchronisation that reads its site from
+a device index it counts down: on a CUDA device a replayed CUDA graph of K
+sites (ops/site_graphs.py, the counterpart of JAX's reverse ``lax.scan``),
+on the CPU an eager loop. Dead slots are excluded by their -inf weights.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from hygeia_tpu_torch.ops.hazard import gather_rho
+from hygeia_tpu_torch.ops.site_graphs import SITES_PER_GRAPH, SiteLoop
 from hygeia_tpu_torch.two_group.model import State, TwoGroupParams
 from hygeia_tpu_torch.two_group.proposal import num_children
 
@@ -162,16 +165,20 @@ def backward_simulation(
     *,
     generator=None,
     noise=None,
+    sites_per_graph: int = SITES_PER_GRAPH,
 ):
     """(U, T, B, 5) int32 sampled smoothing trajectories.
 
     Gumbel noise comes from ``generator`` (one, or a list of U: one a
     unit, see ``gumbel``), or from ``noise(t)`` when given:
     a callable returning the (U, B, N) noise for row t (T-1 for the terminal
-    draw), so a test can feed both packages the same numbers."""
+    draw), so a test can feed both packages the same numbers (CPU only).
+    ``sites_per_graph``: sites a CUDA graph on the card (0: eagerly, only
+    to compare the two)."""
     return backward_simulation_conditioned(
         params, log_weights, particles, None, False,
         num_simulations=num_simulations, generator=generator, noise=noise,
+        sites_per_graph=sites_per_graph,
     )
 
 
@@ -185,6 +192,7 @@ def backward_simulation_conditioned(
     num_simulations=None,
     generator=None,
     noise=None,
+    sites_per_graph: int = SITES_PER_GRAPH,
 ):
     """Backward simulation of a genome block conditioned on the sampled
     trajectories of the block to its right: (U, T, B, 5) int32.
@@ -195,12 +203,16 @@ def backward_simulation_conditioned(
     so trajectories join exactly across blocks. Elsewhere the terminal is
     drawn from the final weights, as ``backward_simulation`` does. Noise is
     consumed as in ``backward_simulation``: one (U, B, N) draw per site,
-    from T-1 down to 0."""
+    from T-1 down to 0. Sites T-2..0 run as ``_site_step``: CUDA graphs of
+    ``sites_per_graph`` sites on the card, an eager loop on the CPU; the
+    terminal draw runs eagerly. Injected ``noise`` is a CPU-only route."""
     U, T, N = log_weights.shape
     B = terminal_state.shape[1] if terminal_state is not None else num_simulations
     dev = log_weights.device
     if noise is None:
         noise = lambda t: gumbel((U, B, N), generator=generator, dtype=log_weights.dtype, device=dev)
+    elif dev.type != "cpu":
+        raise ValueError("injected backward noise is a CPU-only route; on the card pass a generator")
 
     traj = torch.empty((U, T, B, 5), dtype=torch.int32, device=dev)
     last = State(*(f[:, T - 1] for f in particles))
@@ -214,15 +226,36 @@ def backward_simulation_conditioned(
         idx = _categorical_rows(logits, eps)
         if use_terminal is not True:
             idx = torch.where(use_terminal[:, None], idx, _categorical_rows(last_lw[:, None, :], eps))
-    nxt = State(*(f.gather(1, idx).to(torch.int32) for f in last))
-    traj[:, T - 1] = torch.stack(nxt, dim=-1)
-    for t in range(T - 2, -1, -1):
-        cur = State(*(f[:, t] for f in particles))
-        logits = _backward_logits(params, cur, nxt, log_weights[:, t], history_layout=True)
-        sel = _categorical_rows(logits, noise(t))
-        nxt = State(*(f.gather(1, sel).to(torch.int32) for f in cur))
-        traj[:, t] = torch.stack(nxt, dim=-1)  # in place, row by row
+    nxt = torch.stack([f.gather(1, idx).to(torch.int32) for f in last], dim=-1)  # (U, B, 5)
+    traj[:, T - 1] = nxt
+    # The carry nxt is overwritten in place; t counts down from T - 2 on
+    # the device, and on the host for injected noise (an eager route).
+    t_dev = torch.full((1,), T - 2, dtype=torch.int64, device=dev)
+    t_host = [T - 2]
+
+    def draw():
+        t_host[0] -= 1
+        return noise(t_host[0] + 1)
+
+    step = lambda: _site_step(params, log_weights, particles, t_dev, nxt, traj, draw)
+    with SiteLoop(dev, sites_per_graph, generator) as loop:
+        loop.run(step, T - 1)
     return traj
+
+
+def _site_step(params, log_weights, particles, t_dev, nxt, traj, draw):
+    """Site t of the reverse walk, replayable as a CUDA graph: t is read
+    from the device index ``t_dev`` (1,), which the step counts down; the
+    next site's states ``nxt`` (U, B, 5) and the trajectories' row t are
+    written in place."""
+    cur = State(*(f.index_select(1, t_dev).squeeze(1) for f in particles))
+    lw_t = log_weights.index_select(1, t_dev).squeeze(1)
+    logits = _backward_logits(params, cur, State(*nxt.unbind(-1)), lw_t, history_layout=True)
+    sel = _categorical_rows(logits, draw())
+    new = torch.stack([f.gather(1, sel).to(torch.int32) for f in cur], dim=-1)
+    traj.index_copy_(1, t_dev, new[:, None])
+    nxt.copy_(new)
+    t_dev.sub_(1)
 
 
 def smoothing_functionals(trajectory, n_regimes):

@@ -1,11 +1,15 @@
 """Deterministic-proposal particle filter for the two-group model.
 
 Counterpart of hygeia_tpu/two_group/filter.py, batched over U units (seeds)
-written out as a leading axis. The genome loop is a Python ``for`` over the
-sites that never waits for the device: the resampling decision, the
-weight-update branch and the degenerate-step reset are tensors under
-``torch.where``, with no ``.item()``, no boolean-mask indexing and no
-``nonzero``. Every draw comes from an explicit ``torch.Generator``.
+written out as a leading axis. The genome loop is a site step that never
+waits for the device: the resampling decision, the weight-update branch
+and the degenerate-step reset are tensors under ``torch.where``, with no
+``.item()``, no boolean-mask indexing and no ``nonzero``; the site index
+is a device tensor the step advances, and the carry is overwritten in
+place. On a CUDA device the step runs as a replayed CUDA graph of K sites
+(ops/site_graphs.py, the counterpart of JAX's ``lax.scan`` with
+``unroll``); on the CPU it runs eagerly. Every draw comes from an explicit
+``torch.Generator``.
 
 * _first_step: R**2 initial proposals scored against the phantom-state
   initial distribution, padded to N = M*I with -inf weights and -1
@@ -31,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from hygeia_tpu_torch.ops.cuda_resampling import optimal_resampling
+from hygeia_tpu_torch.ops.site_graphs import SITES_PER_GRAPH, SiteLoop
 from hygeia_tpu_torch.two_group.model import (
     State,
     TwoGroupParams,
@@ -198,6 +203,7 @@ def run_filter(
     return_history: bool = True,
     init_state=None,
     use_init=None,
+    sites_per_graph: int = SITES_PER_GRAPH,
 ) -> FilterResult:
     """Run the filter over the T sites of the (T, R) or (U, T, R) emission
     tables for n_units independent units.
@@ -230,6 +236,11 @@ def run_filter(
     (f32 weights, int32 durations, int8 flag and regimes). Row 0 is the
     first (or warm) step, rows 1..T-1 the sites after it, the JAX package's
     layout.
+
+    Sites 1..T-1 run as ``_site_step``: on a CUDA device through CUDA
+    graphs of ``sites_per_graph`` sites (0: eagerly, only to compare the
+    two; the same bits either way), on the CPU eagerly. The cold, warm and
+    ``use_init`` starts run eagerly before the loop.
     """
     R = params.n_regimes
     M = num_resampled_ancestors
@@ -283,28 +294,50 @@ def run_filter(
             init_shift = torch.where(use_init, init_shift, cold_shift)
             n_degen = n_degen + (warm_degen & use_init)
 
+    hist = None
     if return_history:
         hist_lw = torch.empty((U, T, N), dtype=weight_dtype, device=dev)
-        hist = State(*(torch.empty((U, T, N), dtype=dt, device=dev) for dt in _HISTORY_DTYPES))
+        hist = (hist_lw, *(torch.empty((U, T, N), dtype=dt, device=dev) for dt in _HISTORY_DTYPES))
         hist_lw[:, 0] = lw
-        for h, f in zip(hist, parts.unbind(1)):
+        for h, f in zip(hist[1:], parts.unbind(1)):
             h[:, 0] = f
     shifts = torch.zeros((U, max(T - 1, 0)), dtype=weight_dtype, device=dev)
     degen = torch.zeros((U, max(T - 1, 0)), dtype=torch.bool, device=dev)
 
-    for t in range(1, T):
-        u_sys, u_mult = _draw_uniforms(generator, U, M, dev)
-        lw, parts = _one_step(
-            params, emission_control[..., t, :], emission_case[..., t, :], lw, parts, M, u_sys, u_mult
-        )
-        lw, shifts[:, t - 1], degen[:, t - 1] = _renormalise(lw)
-        if return_history:
-            hist_lw[:, t] = lw  # in place: row t of the preallocated history
-            for h, f in zip(hist, parts.unbind(1)):
-                h[:, t] = f
+    # The carry: the step overwrites these in place, site after site.
+    lw, parts = (x.clone(memory_format=torch.contiguous_format) for x in (lw, parts))
+    idx = torch.tensor([0, 1], dtype=torch.int64, device=dev)  # (t - 1, t) of the next site
+    step = lambda: _site_step(params, emission_control, emission_case, M, generator, U,
+                              idx, lw, parts, shifts, degen, hist)
+    with SiteLoop(dev, sites_per_graph, generator) as loop:
+        loop.run(step, T - 1)
 
     log_z = init_shift + shifts.sum(dim=-1)
     n_degen = n_degen + degen.sum(dim=-1)
     if not return_history:
         return FilterResult(lw, State(*parts.unbind(1)), log_z, n_degen, init_shift, shifts)
-    return FilterResult(hist_lw, hist, log_z, n_degen, init_shift, shifts)
+    return FilterResult(hist[0], State(*hist[1:]), log_z, n_degen, init_shift, shifts)
+
+
+def _site_step(params, emission_control, emission_case, M, generator, U, idx, lw, parts,
+               shifts, degen, hist):
+    """One site t of the filter's loop, replayable as a CUDA graph: t is
+    read from the device index ``idx`` = (t - 1, t), which the step then
+    advances; the carry ``lw`` (U, N) and ``parts`` (U, 5, N), the
+    shifts' and degenerate flags' column t - 1 and the history's row t are
+    written in place."""
+    t_prev, t = idx[:1], idx[1:]
+    u_sys, u_mult = _draw_uniforms(generator, U, M, lw.device)
+    row_c = emission_control.index_select(-2, t).squeeze(-2)
+    row_k = emission_case.index_select(-2, t).squeeze(-2)
+    new_lw, new_parts = _one_step(params, row_c, row_k, lw, parts, M, u_sys, u_mult)
+    new_lw, shift, degenerate = _renormalise(new_lw)
+    shifts.index_copy_(1, t_prev, shift[:, None])
+    degen.index_copy_(1, t_prev, degenerate[:, None])
+    if hist is not None:
+        hist[0].index_copy_(1, t, new_lw[:, None])
+        for h, f in zip(hist[1:], new_parts.unbind(1)):
+            h.index_copy_(1, t, f[:, None].to(h.dtype))
+    lw.copy_(new_lw)
+    parts.copy_(new_parts)
+    idx.add_(1)

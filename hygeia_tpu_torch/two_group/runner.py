@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from hygeia_tpu_torch.ops.emissions import emission_log_prob_table, robust_emission_log_prob_table
+from hygeia_tpu_torch.ops.site_graphs import SITES_PER_GRAPH
 from hygeia_tpu_torch.two_group.backward import backward_simulation, smoothing_functionals
 from hygeia_tpu_torch.two_group.filter import HISTORY_BYTES_PER_PARTICLE_SITE, run_filter
 from hygeia_tpu_torch.two_group.model import make_params
@@ -236,7 +237,7 @@ def _report_degenerate(label, d):
         print(f"{label}: degenerate_steps=0")
 
 
-def _infer_chunk(params, E_c, E_k, M, B, R, chunk, device, streaming_blocks, timings):
+def _infer_chunk(params, E_c, E_k, M, B, R, chunk, device, streaming_blocks, timings, K):
     """Filter and backward simulation of one chunk of seeds as U units:
     (logZ (U,), trajectories (U, T, B, 5), split (U, T), regime (U, T, 2R),
     degenerate steps (U,), filter and backward seconds a seed), as numpy."""
@@ -248,7 +249,7 @@ def _infer_chunk(params, E_c, E_k, M, B, R, chunk, device, streaming_blocks, tim
             params, E_c, E_k, M, B, n_units=len(chunk),
             generator=_generator(device, chunk, 0),
             backward_generator=_generator(device, chunk, 1),
-            block_size=int(streaming_blocks), timings=tim,
+            block_size=int(streaming_blocks), timings=tim, sites_per_graph=K,
         )
         if timings is not None:
             for k, v in tim.items():
@@ -259,12 +260,13 @@ def _infer_chunk(params, E_c, E_k, M, B, R, chunk, device, streaming_blocks, tim
         # runner's streamed path does.
         return log_z, traj, split, regime, degen, (time.perf_counter() - t0) / len(chunk), 0.0
     with torch.profiler.record_function("infer.filter"):
-        res = run_filter(params, E_c, E_k, M, n_units=len(chunk), generator=_generator(device, chunk, 0))
+        res = run_filter(params, E_c, E_k, M, n_units=len(chunk), generator=_generator(device, chunk, 0),
+                         sites_per_graph=K)
         _sync(device)
     t1 = time.perf_counter()
     with torch.profiler.record_function("infer.backward"):
         traj = backward_simulation(params, res.log_weights, res.particles, B,
-                                   generator=_generator(device, chunk, 1))
+                                   generator=_generator(device, chunk, 1), sites_per_graph=K)
         split, regime = smoothing_functionals(traj, R)
         _sync(device)
     t2 = time.perf_counter()
@@ -304,6 +306,7 @@ def infer_segment(
     timings=None,
     marginal_epsilon=0.01,
     marginal_window=64,
+    sites_per_graph=SITES_PER_GRAPH,
 ):
     """Run inference for one (chrom, batch, seed or seeds) work unit on
     ``device`` and write the reference-format outputs under
@@ -334,7 +337,11 @@ def infer_segment(
 
     multinomial is recorded in the flags files only: as in hygeia_tpu, the
     INFER filter always takes the optimal resampler (whose fallback is
-    multinomial)."""
+    multinomial).
+
+    sites_per_graph: the filter's and the backward pass's sites a CUDA
+    graph on the card (0: eagerly, only to compare the two; the same
+    files either way); the marginal filter's loop runs eagerly."""
     device = torch.device(device)
     mu = np.asarray(mu, np.float64)
     R = len(mu)
@@ -407,7 +414,7 @@ def infer_segment(
             chunk = seeds[c0 : c0 + seeds_per_call]
             with _profile(trace_dir, device):
                 log_z, traj, split, regime, degen, t_f, t_b = _infer_chunk(
-                    params, E_c, E_k, M, B, R, chunk, device, streaming_blocks, timings)
+                    params, E_c, E_k, M, B, R, chunk, device, streaming_blocks, timings, sites_per_graph)
             for i, s in enumerate(chunk):
                 _report_degenerate(f"seed {s}", degen[i])
                 outs[s] = (float(log_z[i]), traj[i], split[i], regime[i], t_f, t_b)
@@ -619,6 +626,7 @@ def infer_chromosome_meshed(
     rng_seed=0,
     max_units_per_call=None,
     timings=None,
+    sites_per_graph=SITES_PER_GRAPH,
 ):
     """Whole-chromosome INFER on a (genome x seed) mesh over the
     ``torch.distributed`` ranks (parallel/sharded.py): every (batch, seed)
@@ -637,7 +645,8 @@ def infer_chromosome_meshed(
     robust=True takes the beta-divergence score of exponent robust_beta.
     Realisations differ from infer_segment's (per-unit generators,
     symmetric zero-padded halos). ``timings``, a dict, gets
-    ``sharded_two_group_inference``'s per particle budget N."""
+    ``sharded_two_group_inference``'s per particle budget N.
+    ``sites_per_graph``: as ``infer_segment``'s."""
     from hygeia_tpu_torch.parallel.mesh import make_mesh
     from hygeia_tpu_torch.parallel.sharded import sharded_two_group_inference
 
@@ -681,7 +690,7 @@ def infer_chromosome_meshed(
             segment_size=segment_size, buffer_size=buffer_size, num_resampled_ancestors=M,
             num_samples_backward=B, seeds=seeds, base_key=rng_seed, weight_dtype=weight_dtype,
             boundary=boundary, robust_beta=robust_beta if robust else None,
-            max_units_per_call=max_units_per_call, timings=tim,
+            max_units_per_call=max_units_per_call, timings=tim, sites_per_graph=sites_per_graph,
         )
         wall = time.perf_counter() - t0
         if timings is not None:

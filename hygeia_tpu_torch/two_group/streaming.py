@@ -38,6 +38,7 @@ import time
 import numpy as np
 import torch
 
+from hygeia_tpu_torch.ops.site_graphs import SITES_PER_GRAPH
 from hygeia_tpu_torch.two_group.backward import backward_simulation_conditioned
 from hygeia_tpu_torch.two_group.filter import run_filter
 
@@ -79,6 +80,7 @@ def streamed_inference(
     weight_dtype=torch.float32,
     phantom_regime=None,
     timings: dict | None = None,
+    sites_per_graph: int = SITES_PER_GRAPH,
 ):
     """Returns (traj (U, T, B, 5) int32 numpy, log_z (U,) tensor,
     degenerate steps (U,) tensor).
@@ -89,7 +91,8 @@ def streamed_inference(
     seconds (lists "fwd", "rev", "pull": forward block, re-run + backward,
     device-to-host copy) and "rerun_equals_checkpoint": for every block but
     the last, whether its re-run's final state equals its checkpoint bit
-    for bit."""
+    for bit. ``sites_per_graph``: the site loops' sites a CUDA graph on the
+    card (0: eagerly, only to compare the two)."""
     U = int(n_units)
     M, B = num_resampled_ancestors, num_samples_backward
     dev = params.device
@@ -106,6 +109,7 @@ def streamed_inference(
             params, emission_control[..., lo:hi, :], emission_case[..., lo:hi, :], M,
             n_units=U, generator=generator, weight_dtype=weight_dtype,
             phantom_regime=phantom_regime, return_history=return_history, init_state=init,
+            sites_per_graph=sites_per_graph,
         )
 
     # ---- forward checkpoint sweep ------------------------------------------
@@ -139,7 +143,7 @@ def streamed_inference(
             ckpts[b] = None
         traj = backward_simulation_conditioned(
             params, res.log_weights, res.particles, term, term is not None,
-            num_simulations=B, generator=backward_generator,
+            num_simulations=B, generator=backward_generator, sites_per_graph=sites_per_graph,
         )
         shift_parts[b] = (res.init_shift, res.shifts)
         degen += res.degenerate_steps

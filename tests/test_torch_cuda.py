@@ -584,3 +584,137 @@ def test_meshed_inference_on_the_card(device, boundary):
         assert cr.KERNEL.launches - before == expected_launches(boundary, 50, 10, 1, chunks, reruns)
         assert np.isfinite(outs[-1][1]).all()
     assert np.array_equal(outs[0][0], outs[1][0]) and np.array_equal(outs[0][1], outs[1][1])
+
+
+# ---- the site loops as replayed CUDA graphs (ops/site_graphs.py) -------------
+
+def _graph_params(device, T):
+    from hygeia_tpu_torch.two_group.model import make_params
+
+    R = 6
+    return make_params(
+        mu=[0.95, 0.05, 0.80, 0.20, 0.50, 0.50], sigma=[0.05, 0.05, 0.1, 0.1, 0.1, 0.2886751],
+        p_softmax_control=np.zeros((R, R)), omega_logit_control=np.full(R, 4.0), omega_case=0.8,
+        kappa_control=np.full(R, 2.0), kappa_case=np.full(R, 2.0), merge_log_prob=np.log(0.1),
+        split_prob=0.01, minimum_duration=3, d_max=T + 1, device=device,
+    )
+
+
+def _graph_tables(params, T, U, seed):
+    from hygeia_tpu_torch.ops.emissions import emission_log_prob_table
+
+    rng = np.random.default_rng(seed)
+    n = rng.poisson(20, size=(U, T, 2))
+    tab = lambda p: torch.stack([
+        emission_log_prob_table(rng.binomial(n[u], p), n[u], params.alpha, params.beta) for u in range(U)
+    ])
+    return tab(0.7), tab(0.3)
+
+
+@pytest.mark.parametrize("K", [1, 3, 8])
+def test_graphed_filter_and_backward_equal_eager(device, K):
+    """T = 206 at M = 50 (N = 2400), U = 3 units with per-unit generators
+    and per-unit segments, warm for two units (use_init): run_filter and
+    both backward forms replayed as graphs of K sites equal their eager
+    runs (sites_per_graph=0) bit for bit; K1's count counts the replays."""
+    from hygeia_tpu_torch.two_group.backward import backward_simulation, backward_simulation_conditioned
+    from hygeia_tpu_torch.two_group.filter import run_filter
+
+    T, U, M, B = 206, 3, 50, 25
+    params = _graph_params(device, T)
+    E_c, E_k = _graph_tables(params, T, U, seed=K)
+    gens = lambda base: [torch.Generator(device=device).manual_seed(base + u) for u in range(U)]
+    prev = run_filter(params, E_c, E_k, M, n_units=U, generator=gens(40), return_history=False)
+    init = (prev.log_weights, torch.stack(prev.particles, 1))
+    out = {}
+    for k in (0, K):
+        before = cr.KERNEL.launches
+        res = run_filter(params, E_c, E_k, M, n_units=U, generator=gens(7), init_state=init,
+                         use_init=[True, False, True], sites_per_graph=k)
+        assert cr.KERNEL.launches - before == T - 1 + 1  # the warm step, then sites 1..T-1
+        traj = backward_simulation(params, res.log_weights, res.particles, B, generator=gens(11), sites_per_graph=k)
+        cond = backward_simulation_conditioned(params, res.log_weights, res.particles, traj[:, 0],
+                                               torch.tensor([True, False, True], device=device),
+                                               generator=gens(13), sites_per_graph=k)
+        out[k] = [res.log_weights, *res.particles, res.log_normalizing_constant, res.shifts,
+                  res.degenerate_steps, traj, cond]
+    for a, b in zip(out[0], out[K]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("K", [1, 3, 8])
+def test_graphed_engine_equals_eager(device, K):
+    """The single-group engine at the CLI's width (N = 250) with updates
+    every 50 sites, over 600 sites, for 3 units with t_limit (600, 333,
+    517): the steady and past-the-limit sites replayed as graphs of K sites
+    equal the eager run bit for bit, and K1's count is T - 1 either way."""
+    from hygeia_tpu_torch.ops.emissions import emission_log_prob_table
+    from hygeia_tpu_torch.single_group.engine import EngineConfig, run_online_combined_inference
+    from hygeia_tpu_torch.single_group.model import make_model, parameters_to_theta
+
+    R, T = 6, 600
+    rng = np.random.default_rng(K)
+    model = make_model([0.99, 0.01, 0.8, 0.2, 0.5, 0.5], [0.05, 0.05, 0.2, 0.2, 0.2, 0.2886751],
+                       2, np.full(R, 2.0), device=device)
+    p = np.full((R, R), 1.0 / (R - 1))
+    np.fill_diagonal(p, 0.0)
+    theta = parameters_to_theta(p, [0.995, 0.975, 0.95, 0.925, 0.9, 0.9])
+    n = rng.poisson(20, size=(3, T, 2))
+    y = rng.binomial(n, np.repeat(rng.uniform(0, 1, T // 50), 50)[None, :, None])
+    E = torch.stack([emission_log_prob_table(y[u], n[u], model.alpha, model.beta) for u in range(3)])
+    cfg = EngineConfig(estimate_parameters=True, steps_per_update=50)
+    out = {}
+    for k in (0, K):
+        before = cr.KERNEL.launches
+        res = run_online_combined_inference(model, theta, E, cfg, n_units=3, shared_draws=True,
+                                            generator=torch.Generator(device=device).manual_seed(0),
+                                            t_limit=[600, 333, 517], sites_per_graph=k)
+        assert cr.KERNEL.launches - before == T - 1
+        out[k] = res
+    for name, a, b in zip(out[0]._fields, out[0], out[K]):
+        for x, y in zip(a, b) if isinstance(a, tuple) else [(a, b)]:
+            assert torch.equal(x, y), name
+
+
+def test_streamed_graphed_equals_eager_monolithic(device):
+    """Streamed INFER, whose blocks restore saved generator states between
+    graphed runs, against the monolithic filter and backward pass run
+    eagerly: the trajectories and logZ bit for bit."""
+    from hygeia_tpu_torch.two_group.backward import backward_simulation
+    from hygeia_tpu_torch.two_group.filter import run_filter
+    from hygeia_tpu_torch.two_group.streaming import launches_per_call, streamed_inference
+
+    T, U, M, B, W = 300, 2, 50, 25, 64
+    params = _graph_params(device, T)
+    E_c, E_k = (e[0] for e in _graph_tables(params, T, 1, seed=5))
+    gen = lambda s: torch.Generator(device=device).manual_seed(s)
+    res = run_filter(params, E_c, E_k, M, n_units=U, generator=gen(1), sites_per_graph=0)
+    traj = backward_simulation(params, res.log_weights, res.particles, B, generator=gen(2), sites_per_graph=0)
+    before = cr.KERNEL.launches
+    got, log_z, degen = streamed_inference(params, E_c, E_k, M, B, n_units=U, generator=gen(1),
+                                           backward_generator=gen(2), block_size=W)
+    assert cr.KERNEL.launches - before == launches_per_call(T, W)
+    np.testing.assert_array_equal(got, traj.cpu().numpy())
+    assert torch.equal(log_z, res.log_normalizing_constant)
+    assert torch.equal(degen, res.degenerate_steps)
+
+
+def test_a_step_that_waits_for_the_host_fails_its_capture(device):
+    """A step that synchronises (``.item()``) cannot be captured: the loop
+    raises, and the eager route is not taken instead."""
+    from hygeia_tpu_torch.ops.site_graphs import SiteLoop
+
+    x = torch.zeros((4,), device=device)
+    calls = []
+
+    def step():
+        calls.append(1)
+        x.add_(1.0)
+        x.sum().item()
+
+    with pytest.raises(RuntimeError):
+        with SiteLoop(device, 4) as loop:
+            loop.run(step, 9)
+    torch.cuda.synchronize(device)
+    assert len(calls) == 2  # the eager first site, then the capture that failed
+    assert torch.equal(x, torch.ones((4,), device=device))  # only the eager site ran
