@@ -126,7 +126,9 @@ Phases, each of which raises (exit code non-zero) when it fails:
    and stay there (tests/test_torch_single_group_pipeline.py::
    test_both_passes_from_the_ports_start_agree_with_jax);
 14. ``infer --marginal`` (runner.infer_segment) on batch 0 of phase 5's
-   chromosome, segment 2,000 + halo 200 (cut for time), phase 6's theta,
+   chromosome, segment 20,000 + halo 1,000 (cut from the production
+   100,000 + 5,000 for time; 2,000 + 200 while its loop ran eagerly),
+   phase 6's theta,
    M=50 (N=2400), window 64, seeds 0 and 1 in one call: T - 1 launches,
    logZ finite, the spill counts printed, the split probability higher
    inside the planted DMRs than outside, the split and the regime
@@ -180,13 +182,18 @@ Phases, each of which raises (exit code non-zero) when it fails:
    chunk's launches, weighted DMPs at least half in planted windows;
 21. the site loops as replayed CUDA graphs (ops/site_graphs.py, the path
    every phase above takes) against the same loops run eagerly
-   (``sites_per_graph=0``) in this call: ``infer_segment`` monolithic and
-   streamed (segment 3,000 + 300, W = 1,024; ``--graph_sites``,
-   ``--graph_buffer``, ``--graph_stream_block``) on phase 5's chromosome,
-   phase 18's meshed halo run, and ``estimate_parameters_and_regimes`` on
-   the first 5,000 control CpGs (``--graph_sg_sites``): every npz array,
-   logZ file and CSV equal bit for bit, K1's launches equal; ms/site of
-   the loops and the peak memory of both.
+   (``sites_per_graph=0``) in this call: ``infer_segment`` monolithic,
+   streamed and ``--marginal`` (both seeds in one call; segment 3,000 +
+   300, W = 1,024; ``--graph_sites``, ``--graph_buffer``,
+   ``--graph_stream_block``) on phase 5's chromosome, phase 18's meshed
+   halo run, ``estimate_parameters_and_regimes`` on the first 5,000
+   control CpGs (``--graph_sg_sites``; its update sites replayed too):
+   every npz array, logZ file and CSV equal bit for bit, the marginal
+   filter's spill counts equal and T - 1 launches, K1's launches equal;
+   ms/site of the loops and the peak memory of both; then both
+   simulators' chains (simulate_two_groups's at its defaults, T = 2,000;
+   simulate_data's model on 5,000 sites) graphed and eager on the same
+   noise: the states equal bit for bit, ms/site of each.
 
 Phase 3b (after 3): the probe kernel (``csrc/probe.cu``, 2*x + max(x) in
 one block; replaces ``.round4/pallas_smoke.py:11``) through its wrapper on
@@ -1394,11 +1401,15 @@ MARGINAL_SPLIT_BOUND = 0.1
 MARGINAL_REGIME_BOUND = 0.07
 
 
+MARGINAL_SEEDS = (0, 1)
+
+
 def marginal_phase(device, root, data_dir, sg_dir, dmr, segment_size, buffer_size, slice_dir, slice_stats,
-                   seeds=(0, 1), window=64):
-    """infer --marginal (runner.infer_segment as the CLI calls it) on batch 0
-    of phase 5's chromosome with phase 6's theta, both seeds in one call
-    (M=50, N=2400, window 64): T - 1 launches, logZ finite, the spill count,
+                   seeds=MARGINAL_SEEDS, window=64):
+    """infer --marginal (runner.infer_segment as the CLI calls it, its loop
+    replayed as CUDA graphs) on batch 0 of phase 5's chromosome with phase
+    6's theta, both seeds in one call (M=50, N=2400, window 64): T - 1
+    launches (counted through the replays), logZ finite, the spill count,
     the split probability higher inside the planted DMRs than outside, the
     split and the regime probabilities within MARGINAL_SPLIT_BOUND and
     MARGINAL_REGIME_BOUND (mean absolute) of phase 7's backward-simulation
@@ -1974,20 +1985,92 @@ def _same_files(a_dir, b_dir, what):
     return len(names)
 
 
+@contextlib.contextmanager
+def _loop_timer(device):
+    """While open, every ``SiteLoop.run`` call, every capture of a new
+    graph and every ``engine._run_sites`` call (the single-group engine's
+    whole site loop) timed between two device syncs. Yields the record:
+    "runs" {kind: [seconds of each run call]}, "sites" {kind: sites},
+    "capture_s" (the captures' seconds, which the run calls include),
+    "engine_loop" [seconds, sites]. Each sync drains the queue once a run
+    call or a capture."""
+    from hygeia_tpu_torch.ops.site_graphs import SiteLoop
+    from hygeia_tpu_torch.single_group import engine as em
+
+    rec = {"runs": {}, "sites": {}, "capture_s": 0.0, "engine_loop": [0.0, 0]}
+    run, graph, run_sites = SiteLoop.run, SiteLoop._graph, em._run_sites
+
+    def timed(fn):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(device)
+        return out, time.perf_counter() - t0
+
+    def timed_run(self, step, n, kind="site"):
+        _, secs = timed(lambda: run(self, step, n, kind))
+        rec["runs"].setdefault(str(kind), []).append(secs)
+        rec["sites"][str(kind)] = rec["sites"].get(str(kind), 0) + int(n)
+
+    def timed_graph(self, step, kind, sites):
+        fresh = (kind, sites) not in self.graphs
+        out, secs = timed(lambda: graph(self, step, kind, sites))
+        rec["capture_s"] += secs if fresh else 0.0
+        return out
+
+    def timed_run_sites(eng, loop, start, stop, draws):
+        _, secs = timed(lambda: run_sites(eng, loop, start, stop, draws))
+        rec["engine_loop"][0] += secs
+        rec["engine_loop"][1] += stop - start
+
+    SiteLoop.run, SiteLoop._graph, em._run_sites = timed_run, timed_graph, timed_run_sites
+    try:
+        yield rec
+    finally:
+        SiteLoop.run, SiteLoop._graph, em._run_sites = run, graph, run_sites
+
+
+def _engine_classes(rec):
+    """The engine's site loop by class from a ``_loop_timer`` record:
+    ms/site of the steady runs, each update site's ms (a one-site run:
+    the first eager, the second with its capture, then replays) and
+    their median, and ms/site of the sites that run eagerly outside any
+    run call (the growth phase, the last site)."""
+    import numpy as np
+
+    runs, sites = rec["runs"], rec["sites"]
+    loop_s, loop_sites = rec["engine_loop"]
+    in_runs = sum(sum(v) for v in runs.values())
+    upd = [1e3 * x for x in runs.get("update", [])]
+    return {
+        "steady_ms_per_site": 1e3 * sum(runs.get("steady", [0.0])) / max(1, sites.get("steady", 0)),
+        "steady_sites": sites.get("steady", 0),
+        "update_ms_each": upd,
+        "update_ms_median": float(np.median(upd)) if upd else None,
+        "eager_sites": loop_sites - sum(sites.values()),
+        "eager_ms_per_site": 1e3 * (loop_s - in_runs) / max(1, loop_sites - sum(sites.values())),
+        "loop_ms_per_site": 1e3 * loop_s / max(1, loop_sites),
+        "capture_s": rec["capture_s"],
+    }
+
+
 def graph_phase(device, root, data_dir, sg_dir, segment_size, buffer_size, stream_block, mesh_args, sg_sites,
                 seed=0):
     """The site loops graphed (SITES_PER_GRAPH sites a CUDA graph, the
     default) and eager (sites_per_graph=0) in this call, each pair on the
-    same inputs and generators: runner.infer_segment monolithic and streamed
-    (``stream_block``) on batch 0 of phase 5's chromosome (segment_size +
-    buffer_size), runner.infer_chromosome_meshed halo on phase 18's
-    chromosome and mesh, and single_group.runner.estimate_parameters_and_
-    regimes on the first ``sg_sites`` control CpGs of phase 5's chromosome
-    (the CLI's defaults, both estimates on). Every output file (npz arrays,
-    logZ files, CSVs) equal bit for bit, K1's launches equal, the engine's
-    logZ equal; ms/site of the loops (the filter and the backward pass
-    apart for infer and the meshed run) and peak memory of both. Returns
-    stats."""
+    same inputs and generators: runner.infer_segment monolithic, streamed
+    (``stream_block``) and marginal (seeds MARGINAL_SEEDS in one call) on
+    batch 0 of phase 5's chromosome (segment_size + buffer_size),
+    runner.infer_chromosome_meshed halo on phase 18's chromosome and mesh,
+    and single_group.runner.estimate_parameters_and_regimes on the first
+    ``sg_sites`` control CpGs of phase 5's chromosome (the CLI's defaults,
+    both estimates on, an update every 200 sites). Every output file (npz
+    arrays, logZ files, CSVs) equal bit for bit, K1's launches equal (T - 1
+    for the marginal filter), its spill counts equal, the engine's logZ
+    equal; ms/site of the loops (the filter and the backward pass apart for
+    infer and the meshed run; the marginal call's seconds for both seeds)
+    and peak memory of both; the engine's site loop by class of site
+    (``_engine_classes``); then ``_chain_pairs``. Returns stats."""
     import numpy as np
     import torch
     from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
@@ -2032,10 +2115,16 @@ def graph_phase(device, root, data_dir, sg_dir, segment_size, buffer_size, strea
             n_particles=SG_N, estimate_parameters=True, estimate_regime_probabilities=True,
             sites_per_graph=K, **files)
 
+    def marginal(out, K):
+        return infer_segment(data_dir=data_dir, single_group_dir=sg_dir, results_dir=out, chrom="1", device=device,
+                             batch=0, seed=list(MARGINAL_SEEDS), segment_size=segment_size, buffer_size=buffer_size,
+                             marginal=True, sites_per_graph=K)
+
     mesh_units = -(-max(1, -(-mesh_sites // mesh_seg)) // MESH_SHAPE[0]) * MESH_SHAPE[0] * len(MESH_SEEDS)
     paths = {
         "infer": (infer, "chrom_1_0", T),
         "streamed": (lambda out, K: infer(out, K, stream_block), "chrom_1_0", T),
+        "marginal": (marginal, "chrom_1_0", T),
         "meshed_halo": (meshed, None, (mesh_seg + 2 * mesh_buf)),
         "engine": (engine, "", sg_sites),
     }
@@ -2048,16 +2137,21 @@ def graph_phase(device, root, data_dir, sg_dir, segment_size, buffer_size, strea
                 torch.cuda.reset_peak_memory_stats(device)
             KERNEL.launches = 0
             _sync(device)
+            text = io.StringIO()
             t0 = time.perf_counter()
-            with contextlib.redirect_stdout(io.StringIO()):
+            with contextlib.redirect_stdout(text), (_loop_timer(device) if name == "engine"
+                                                    else contextlib.nullcontext()) as rec:
                 res = run(out, K)
             _sync(device)
             wall = time.perf_counter() - t0
             got[label] = {"out": out, "res": res, "wall_s": wall, "launches": KERNEL.launches,
+                          "text": text.getvalue(), "classes": rec and _engine_classes(rec),
                           "peak": torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None}
         g, e = got["graphed"], got["eager"]
         check(g["launches"] == e["launches"], f"graphs {name}: K1 launched {g['launches']} times graphed, "
                                               f"{e['launches']} eager")
+        if name == "marginal":
+            check(g["launches"] == sites - 1, f"graphs marginal: K1 launched {g['launches']} times for T={sites}")
         split = None  # (filter s, backward s) by label
         if name == "meshed_halo":
             n_files = sum(_same_files(os.path.join(g["out"], d), os.path.join(e["out"], d), f"graphs {name} {d}")
@@ -2074,12 +2168,23 @@ def graph_phase(device, root, data_dir, sg_dir, segment_size, buffer_size, strea
                         secs.append(float(ast.literal_eval(fh.read())[N]))
                 split[lab] = tuple(secs)
         loops = {lab: sum(split[lab]) if split else got[lab]["wall_s"] for lab in got}
+        if name == "marginal":  # the runner's seconds of the call (a seed's share each), and the spill lines
+            spills = {}
+            for lab in got:
+                spills[lab] = [ln for ln in got[lab]["text"].splitlines() if ln.startswith("marginal filter seed")]
+                loops[lab] = 0.0
+                for sd in MARGINAL_SEEDS:
+                    with open(os.path.join(got[lab]["out"], sub, f"optimal_time_{sd}.txt")) as fh:
+                        loops[lab] += float(ast.literal_eval(fh.read())[N])
+            check(len(spills["graphed"]) == len(MARGINAL_SEEDS) and spills["graphed"] == spills["eager"],
+                  f"graphs marginal: spill counts {spills}")
         if name == "engine":
             for field in ("log_normalizing_constant", "regime_probs", "theta_trace", "final_theta"):
                 check(torch.equal(getattr(g["res"], field), getattr(e["res"], field)),
                       f"graphs engine: {field} differs graphed and eager")
         ms = {lab: 1e3 * loops[lab] / sites for lab in loops}
-        stats[name] = {"sites": sites, "units": mesh_units if name == "meshed_halo" else 1, "files_equal": n_files,
+        units = {"meshed_halo": mesh_units, "marginal": len(MARGINAL_SEEDS)}.get(name, 1)
+        stats[name] = {"sites": sites, "units": units, "files_equal": n_files,
                        "launches": g["launches"], "ms_per_site": ms, "speedup": ms["eager"] / ms["graphed"],
                        "wall_s": {lab: got[lab]["wall_s"] for lab in got},
                        "max_memory_allocated_bytes": {lab: got[lab]["peak"] for lab in got}}
@@ -2092,6 +2197,76 @@ def graph_phase(device, root, data_dir, sg_dir, segment_size, buffer_size, strea
               + ("".join(f"; {lab} filter {1e3 * split[lab][0] / sites:.3f} + backward "
                          f"{1e3 * split[lab][1] / sites:.3f} ms/site" for lab in got) if split else "")
               + f"; max_memory_allocated {g['peak']} graphed, {e['peak']} eager")
+        if name == "engine":
+            stats[name]["by_class"] = {lab: got[lab]["classes"] for lab in got}
+            for lab in got:
+                c = got[lab]["classes"]
+                print(f"graphs engine {lab} by class: steady {c['steady_ms_per_site']:.3f} ms/site "
+                      f"({c['steady_sites']} sites), update sites {c['update_ms_median']:.3f} ms each (median "
+                      f"of {len(c['update_ms_each'])}; first two {[round(x, 3) for x in c['update_ms_each'][:2]]}), "
+                      f"eager sites {c['eager_ms_per_site']:.3f} ms/site ({c['eager_sites']} sites), captures "
+                      f"{c['capture_s']:.3f} s")
+        if name == "marginal":
+            stats[name]["spill_lines"] = spills["graphed"]
+            print("graphs marginal: " + "; ".join(spills["graphed"]) + " (graphed and eager alike)")
+    stats.update(_chain_pairs(device, root, sg_sites))
+    return stats
+
+
+def _chain_pairs(device, root, sg_sites, seed=0):
+    """Both simulators' chains graphed (SITES_PER_GRAPH) and eager in this
+    call on the same noise: simulate_two_groups's at the verb's defaults
+    (T = 2,000) and simulate_data's at its model and ``sg_sites`` CpGs. The
+    states equal bit for bit; ms/site of each (simulate_chain's call,
+    the single-group one's table build included; graphed, also without
+    its captures, timed apart by ``_loop_timer``) and peak memory of
+    each."""
+    import numpy as np
+    import torch
+    from hygeia_tpu_torch import cli
+    from hygeia_tpu_torch.ops.site_graphs import SITES_PER_GRAPH
+    from hygeia_tpu_torch.single_group import simulate as sg_sim
+    from hygeia_tpu_torch.single_group.model import make_model, parameters_to_theta
+    from hygeia_tpu_torch.single_group.runner import DEFAULT_MU, DEFAULT_OMEGA, DEFAULT_SIGMA, default_p
+    from hygeia_tpu_torch.two_group import simulate as tg_sim
+    from hygeia_tpu_torch.two_group.simulate_runner import simulation_params
+
+    gen = lambda: torch.Generator(device=device).manual_seed(seed)
+    args = cli.build_parser().parse_args(["simulate_two_groups", "--results_dir", os.path.join(root, "chains")])
+    params, _n_c, _n_k = simulation_params(args, device)
+    T2 = args.n_observations
+    noise2 = tg_sim.draw_chain_noise(T2, params.n_regimes, generator=gen(), device=device)
+    model = make_model(np.asarray(DEFAULT_MU), DEFAULT_SIGMA, 2, np.full(R, 2.0), d_max=4096, device=device)
+    theta = torch.as_tensor(parameters_to_theta(default_p(R), np.asarray(DEFAULT_OMEGA), np.full(R, 2.0)),
+                            dtype=torch.float32, device=device)
+    noise1 = sg_sim.draw_chain_noise(sg_sites, R, generator=gen(), device=device)
+    chains = {
+        "simulate_two_groups_chain": (T2, lambda K: tg_sim.simulate_chain(params, noise2, K)),
+        "simulate_data_chain": (sg_sites, lambda K: torch.stack(sg_sim.simulate_chain(model, theta, noise1, K))),
+    }
+    stats = {}
+    for name, (sites, run) in chains.items():
+        got, secs, capture, peak = {}, {}, {}, {}
+        for label, K in (("graphed", SITES_PER_GRAPH), ("eager", 0)):
+            torch.cuda.reset_peak_memory_stats(device)
+            _sync(device)
+            t0 = time.perf_counter()
+            with _loop_timer(device) as rec:
+                got[label] = run(K)
+            _sync(device)
+            secs[label] = time.perf_counter() - t0
+            capture[label] = rec["capture_s"]
+            peak[label] = torch.cuda.max_memory_allocated(device)
+        check(torch.equal(got["graphed"], got["eager"]), f"graphs {name}: states differ graphed and eager")
+        ms = {lab: 1e3 * secs[lab] / sites for lab in secs}
+        replays = 1e3 * (secs["graphed"] - capture["graphed"]) / sites
+        stats[name] = {"sites": sites, "states_equal": True, "ms_per_site": ms,
+                       "speedup": ms["eager"] / ms["graphed"], "capture_s": capture["graphed"],
+                       "graphed_ms_per_site_without_capture": replays, "max_memory_allocated_bytes": peak}
+        print(f"graphs {name}: {sites} sites, states equal bit for bit graphed and eager; {ms['graphed']:.4f} "
+              f"ms/site graphed ({replays:.4f} without its {capture['graphed']:.4f} s of captures), "
+              f"{ms['eager']:.4f} eager ({stats[name]['speedup']:.2f}x); max_memory_allocated "
+              f"{peak['graphed']} graphed, {peak['eager']} eager")
     return stats
 
 
@@ -2284,9 +2459,9 @@ def main(argv=None):
                     help="CpGs of the pipeline phase's chromosome (default 13000; batches of 6000 + 600)")
     ap.add_argument("--sg_pipeline_sites", type=int, default=5_000,
                     help="CpGs of the single-group pipeline phase's chromosome (default 5000)")
-    ap.add_argument("--marginal_sites", type=int, default=2_000,
-                    help="infer --marginal's segment size (default 2000)")
-    ap.add_argument("--marginal_buffer", type=int, default=200, help="infer --marginal's halo size (default 200)")
+    ap.add_argument("--marginal_sites", type=int, default=20_000,
+                    help="infer --marginal's segment size (default 20000)")
+    ap.add_argument("--marginal_buffer", type=int, default=1_000, help="infer --marginal's halo size (default 1000)")
     ap.add_argument("--simulate_data_sites", type=int, default=5_000,
                     help="CpGs of the simulate_data phase (default 5000)")
     ap.add_argument("--trace_sites", type=int, default=300, help="infer --trace_dir's segment size (default 300)")

@@ -78,8 +78,9 @@ def row_softmax_offdiag(theta_p, n_regimes):
     is 0."""
     R = n_regimes
     rows = torch.softmax(theta_p.reshape(*theta_p.shape[:-1], R, R - 1), dim=-1)
-    cols = torch.tensor(
-        [[c for c in range(R) if c != r] for r in range(R)], device=theta_p.device
-    )
+    # cols[r, j]: the column of row r's j-th off-diagonal entry, made on the
+    # device (a captured parameter update builds P; a host copy is refused).
+    j = torch.arange(R - 1, device=theta_p.device)
+    cols = j + (j >= torch.arange(R, device=theta_p.device)[:, None])
     P = torch.zeros((*rows.shape[:-1], R), dtype=rows.dtype, device=rows.device)
     return P.scatter_(-1, cols.expand(rows.shape), rows)

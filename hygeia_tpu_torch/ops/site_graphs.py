@@ -98,11 +98,13 @@ class SiteLoop:
 
     def run(self, step, n, kind="site"):
         n = int(n)
+        if n <= 0:
+            return
         if not self.graphed:
             for _ in range(n):
                 step()
             return
-        if n > 0 and kind not in self.warm:
+        if kind not in self.warm:
             step()
             self.warm.add(kind)
             n -= 1

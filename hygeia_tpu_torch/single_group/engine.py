@@ -17,11 +17,13 @@ step never waits for the device:
   the step advances, and every tensor of the state (and the tables the
   step reads) is overwritten in place.
 
-So on a CUDA device the steady-state site (at capacity, not an update
-site, not a site where entries finalise, not the last) runs as a replayed
-CUDA graph of K sites (ops/site_graphs.py, the counterpart of JAX's
-``lax.scan``), and sites past the first t_limit under a graph of their
-own; every other site, and every site on the CPU, runs eagerly.
+So on a CUDA device the steady-state site (at capacity, not a site
+where entries finalise, not the last) runs as a replayed CUDA graph of K
+sites (ops/site_graphs.py, the counterpart of JAX's ``lax.scan``), a
+parameter-update site (its ADAM step and the tables' rebuild included)
+as a replayed graph of one site, and sites past the first t_limit under
+graphs of their own; the growth phase, the sites where entries finalise,
+the last site, and every site on the CPU run eagerly.
 
 Layout of the N particle slots at step t (as in JAX): continuations
 [0, m_t), the R fresh change-point particles [m_t, m_t + R), dead slots
@@ -224,16 +226,19 @@ class _Engine:
 
     def kind(self, t):
         """The graph that site t runs under on a CUDA device: "steady", or
-        "frozen" past the first t_limit; None for a site that runs eagerly
-        (the growth phase, an update site, a site where entries finalise,
-        the last site, a progress line)."""
+        "update" at a parameter update (the step then rebuilds the tables
+        in place); past the first t_limit "frozen" and "frozen update".
+        None for a site that runs eagerly (the growth phase, a site where
+        entries finalise, the last site, a progress line)."""
         R, N, cfg = self.R, self.N, self.config
         if (min(R * t, N) + R <= N or t == self.T - 1
-                or (cfg.estimate_parameters and t % cfg.steps_per_update == 0)
                 or (self.final_at is not None and t in self.final_at)
                 or (cfg.progress_every and t % cfg.progress_every == 0)):
             return None
-        return "steady" if t < self.t_freeze else "frozen"
+        update = cfg.estimate_parameters and t % cfg.steps_per_update == 0
+        if t < self.t_freeze:
+            return "update" if update else "steady"
+        return "frozen update" if update else "frozen"
 
     def _lookup(self, d_prev, r_prev):
         """(U, n_haz, N) table values at each particle's (sojourn, regime);

@@ -11,7 +11,10 @@ from a ``torch.Generator``, one call per array (``draw_chain_noise``), or
 handed in as ``noise=`` so that a test can feed the JAX package's draws and
 get its states exactly. Unlike the two-group sampler a jump here is
 ``u <= rho`` (the JAX module's rule). The observations come from the
-generator (two_group.simulate.sample_beta_binomial).
+generator (two_group.simulate.sample_beta_binomial). The chain's site
+loop is a step that reads its site from a device index and writes its
+carry in place, so on a CUDA device it replays as CUDA graphs
+(ops/site_graphs.py; the JAX module's chain is a ``lax.scan``).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from hygeia_tpu_torch.ops.site_graphs import SITES_PER_GRAPH, SiteLoop
 from hygeia_tpu_torch.single_group.model import SingleGroupModel, build_tables
 from hygeia_tpu_torch.two_group.backward import gumbel
 from hygeia_tpu_torch.two_group.simulate import sample_beta_binomial
@@ -48,27 +52,46 @@ def draw_chain_noise(T, R, *, generator, device, dtype=torch.float32) -> ChainNo
     )
 
 
-def simulate_chain(model: SingleGroupModel, theta, noise: ChainNoise):
-    """(d, r), each (T,) int32, on theta's device."""
+def simulate_chain(model: SingleGroupModel, theta, noise: ChainNoise, sites_per_graph: int = SITES_PER_GRAPH):
+    """(d, r), each (T,) int32, on theta's device. Site 0 is set before the
+    loop; sites 1..T-1 run as ``_chain_step``, on a CUDA device through
+    CUDA graphs of ``sites_per_graph`` sites (0: eagerly, only to compare
+    the two; the same states either way), on the CPU eagerly."""
     tables = build_tables(model, theta)
     dev = theta.device
     nz = ChainNoise(*(torch.as_tensor(x, device=dev) for x in noise))
     T = nz.u.shape[0] + 1
-    R = model.n_regimes
-    d = torch.ones((), dtype=torch.int32, device=dev)
-    r = nz.r0.to(torch.int32)
+    # The state is carried with a leading axis of 1: a 0-dim index tensor is
+    # read on the host, which a captured step may not do.
+    d = torch.ones((1,), dtype=torch.int32, device=dev)
+    r = nz.r0.to(torch.int32).reshape(1).clone()
     ds = torch.empty((T,), dtype=torch.int32, device=dev)
     rs = torch.empty((T,), dtype=torch.int32, device=dev)
-    ds[0], rs[0] = d, r
-    for t in range(1, T):
-        r_idx = torch.clamp(r.long(), 0, R - 1)
-        rho = tables.rho[r_idx, torch.clamp(d.long() - 1, 0, model.d_max - 1)]
-        jump = nz.u[t - 1] <= rho
-        new_r = torch.argmax(nz.g[t - 1] + tables.log_P[r_idx]).to(torch.int32)
-        d = torch.where(jump, torch.ones_like(d), d + 1)
-        r = torch.where(jump, new_r, r)
-        ds[t], rs[t] = d, r
+    ds[:1], rs[:1] = d, r
+    t = torch.ones((1,), dtype=torch.int64, device=dev)  # the next site
+    with SiteLoop(dev, sites_per_graph) as loop:
+        loop.run(lambda: _chain_step(model, tables, nz, t, d, r, ds, rs), T - 1)
     return ds, rs
+
+
+def _chain_step(model, tables, nz: ChainNoise, t, d, r, ds, rs):
+    """Site t of the chain, replayable as a CUDA graph: the noise's row
+    t - 1 and row t of ``ds`` and ``rs`` through the device index ``t``,
+    which the step then advances; the state d, r ((1,) int32) overwritten
+    in place."""
+    R = model.n_regimes
+    r_idx = torch.clamp(r.long(), 0, R - 1)
+    rho = tables.rho[r_idx, torch.clamp(d.long() - 1, 0, model.d_max - 1)]
+    row = t - 1
+    jump = nz.u.index_select(0, row) <= rho
+    new_r = torch.argmax(nz.g.index_select(0, row) + tables.log_P[r_idx], dim=-1).to(torch.int32)
+    d_new = torch.where(jump, torch.ones_like(d), d + 1)
+    r_new = torch.where(jump, new_r, r)
+    ds.index_copy_(0, t, d_new)
+    rs.index_copy_(0, t, r_new)
+    d.copy_(d_new)
+    r.copy_(r_new)
+    t.add_(1)
 
 
 def simulate(model: SingleGroupModel, theta, n_total_reads, *, generator,

@@ -177,6 +177,32 @@ def _draw_uniforms(generator, U, M, device, only=None):
     return u_sys, torch.rand((U, M), generator=generator, device=device)
 
 
+def _per_unit(generator, U):
+    """Whether ``generator`` is a list of per-unit generators (it must then
+    hold U), not one generator for all units."""
+    per_unit = isinstance(generator, (list, tuple))
+    if per_unit and len(generator) != U:
+        raise ValueError(f"{len(generator)} generators for {U} units")
+    return per_unit
+
+
+def _phantom_regimes(generator, U, R, device, phantom_regime=None, only=None):
+    """(U,) int64 phantom regimes of a cold start: ``phantom_regime`` for
+    every unit when given, else drawn from ``generator`` (one for all
+    units, or a list of U: unit u draws from generator u; a unit that
+    ``only`` marks False draws nothing and gets a placeholder 0)."""
+    per_unit = _per_unit(generator, U)
+    if phantom_regime is not None:
+        return torch.full((U,), int(phantom_regime), device=device)
+    if not per_unit:
+        return torch.randint(0, R, (U,), generator=generator, device=device)
+    return torch.cat([
+        torch.randint(0, R, (1,), generator=g, device=device) if only is None or only[u]
+        else torch.zeros((1,), dtype=torch.int64, device=device)
+        for u, g in enumerate(generator)
+    ])
+
+
 def warm_step(params, emission_control, emission_case, init_lw, init_particles, M, u_sys, u_mult):
     """Site 0 of a warm-started block: _one_step from the previous block's
     final renormalised weights init_lw (U, N) and particles (U, 5, N) int32,
@@ -249,21 +275,10 @@ def run_filter(
     U = int(n_units)
     dev = params.device
 
-    per_unit = isinstance(generator, (list, tuple))
-    if per_unit and len(generator) != U:
-        raise ValueError(f"{len(generator)} generators for {U} units")
+    per_unit = _per_unit(generator, U)
 
     def cold_start(only=None):
-        if phantom_regime is None and per_unit:
-            phantom_r = torch.cat([
-                torch.randint(0, R, (1,), generator=g, device=dev) if only is None or only[u]
-                else torch.zeros((1,), dtype=torch.int64, device=dev)
-                for u, g in enumerate(generator)
-            ])
-        elif phantom_regime is None:
-            phantom_r = torch.randint(0, R, (U,), generator=generator, device=dev)
-        else:
-            phantom_r = torch.full((U,), int(phantom_regime), device=dev)
+        phantom_r = _phantom_regimes(generator, U, R, dev, phantom_regime, only)
         lw, parts = _first_step(
             params, emission_control, emission_case, N, weight_dtype, phantom_r.to(torch.int32)
         )

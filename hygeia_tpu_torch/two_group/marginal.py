@@ -26,7 +26,10 @@ and at most one rank-R regime factor, so the update is one
 the JAX package computes it outside any Pallas kernel too).
 
 The resampler is K1 (ops/cuda_resampling) through the filter's
-``_one_step``: one launch a site for every unit of the call.
+``_one_step``: one launch a site for every unit of the call. The site
+loop is a step that reads its site from a device index and writes its
+carry in place, so on a CUDA device it replays as CUDA graphs
+(ops/site_graphs.py, the counterpart of the JAX module's ``lax.scan``).
 """
 
 from __future__ import annotations
@@ -35,8 +38,9 @@ from typing import NamedTuple
 
 import torch
 
+from hygeia_tpu_torch.ops.site_graphs import SITES_PER_GRAPH, SiteLoop
 from hygeia_tpu_torch.two_group.backward import _structured_rho
-from hygeia_tpu_torch.two_group.filter import _draw_uniforms, _first_step, _one_step, _renormalise
+from hygeia_tpu_torch.two_group.filter import _draw_uniforms, _first_step, _one_step, _renormalise, _phantom_regimes
 from hygeia_tpu_torch.two_group.model import State, TwoGroupParams
 from hygeia_tpu_torch.two_group.proposal import num_children
 
@@ -225,6 +229,7 @@ def run_marginal_filter(
     smoothing_window=64,
     weight_dtype=torch.float32,
     phantom_regime=None,
+    sites_per_graph: int = SITES_PER_GRAPH,
 ) -> MarginalResult:
     """The marginal filter over the T sites of the (T, R) or (U, T, R)
     emission tables, for n_units units in one site loop (one resampler
@@ -232,10 +237,16 @@ def run_marginal_filter(
 
     Randomness: the phantom regimes (unless ``phantom_regime`` is given)
     and each site's uniforms come from ``generator``, in the order
-    ``run_filter`` draws them; or ``uniforms`` = (u_sys (U, T-1),
+    ``run_filter`` draws them (one generator, or a list of U: unit u then
+    draws from generator u); or ``uniforms`` = (u_sys (U, T-1),
     u_mult (U, T-1, M)) gives every site's. The carried weights are
     renormalised every site (an all-dead site is reset to uniform and
-    counted, as in ``run_filter``) and the shifts summed into logZ."""
+    counted, as in ``run_filter``) and the shifts summed into logZ.
+
+    Sites 1..T-2 run as ``_marginal_step``: on a CUDA device through CUDA
+    graphs of ``sites_per_graph`` sites (0: eagerly, only to compare the
+    two; the same bits either way), on the CPU eagerly. Site 0 and the
+    last site (where every pending time finalises) run eagerly."""
     R = params.n_regimes
     M = num_resampled_ancestors
     N = M * num_children(R)
@@ -249,16 +260,12 @@ def run_marginal_filter(
     if uniforms is None and generator is None:
         raise ValueError("run_marginal_filter needs a generator or injected uniforms")
 
-    if phantom_regime is None:
-        phantom_r = torch.randint(0, R, (U,), generator=generator, device=dev)
-    else:
-        phantom_r = torch.full((U,), int(phantom_regime), device=dev)
+    phantom_r = _phantom_regimes(generator, U, R, dev, phantom_regime)
     lw, parts = _first_step(params, emission_control, emission_case, N, weight_dtype,
                             phantom_r.to(torch.int32))
     shift0 = torch.logsumexp(lw, dim=-1)
     lw = lw - shift0[:, None]
 
-    units = torch.arange(U, device=dev)
     state0 = State(*(_compact_rep(f, R, M) for f in parts.unbind(1)))
     psi = torch.zeros((U, S, F, C), dtype=f32, device=dev)
     psi[:, 0] = _test_functions(state0, R)
@@ -272,47 +279,16 @@ def run_marginal_filter(
     shifts = torch.zeros((U, max(T - 1, 0)), dtype=weight_dtype, device=dev)
     degen = torch.zeros((U, max(T - 1, 0)), dtype=torch.bool, device=dev)
 
-    for t in range(1, T):
-        if uniforms is None:
-            u_sys, u_mult = _draw_uniforms(generator, U, M, dev)
-        else:
-            u_sys, u_mult = uniforms[0][:, t - 1].contiguous(), uniforms[1][:, t - 1].contiguous()
-        new_lw, new_parts, parents = _one_step(
-            params, emission_control[..., t, :], emission_case[..., t, :], lw, parts, M, u_sys, u_mult,
-            return_parents=True)
-        new_lw, shifts[:, t - 1], degen[:, t - 1] = _renormalise(new_lw)
-        w_self = _compact_sum(torch.where(torch.isfinite(new_lw), torch.exp(new_lw), 0.0).to(f32), R, M)
-        new_cols = State(*(_compact_rep(f, R, M) for f in new_parts.unbind(1)))
-
-        prev = State(*parts.unbind(1))
-        anc = State(*(f.gather(1, parents) for f in prev))
-        psi_in = torch.where(psi_valid[:, :, None, None], psi, 0.0)
-        w_prev = torch.where(torch.isfinite(lw), torch.exp(lw), 0.0).to(f32)
-        psi = _structured_psi_update_compact(params, prev, w_prev, anc, psi_in)
-
-        # Insert time t: a free slot, else force-finalise the oldest.
-        has_free = (~psi_valid).any(dim=1)
-        ins = torch.where(has_free, (~psi_valid).to(torch.int8).argmax(dim=1),
-                          torch.where(psi_valid, psi_time, T + 1).argmin(dim=1))
-        means_ins = torch.einsum("ufn,un->uf", psi[units, ins], w_self)
-        spill = spill + (~has_free).to(torch.int64)
-        victim = psi_time[units, ins]
-        out[units, victim] = torch.where(has_free[:, None], out[units, victim], means_ins)
-        out_valid[units, victim] = out_valid[units, victim] | ~has_free
-        psi[units, ins] = _test_functions(new_cols, R)
-        psi_time[units, ins] = t
-        psi_valid[units, ins] = True
-
-        # Finalise: every filtered variance below epsilon, or the last site.
-        means = torch.einsum("usfn,un->usf", psi, w_self)
-        sumsq = torch.einsum("usfn,un->usf", psi * psi, w_self)
-        var = sumsq - means * means
-        fin = psi_valid & ((var < epsilon).all(dim=2) | (t == T - 1))
-        rows = units[:, None].expand(U, S)
-        out[rows, psi_time] = torch.where(fin[..., None], means, out[rows, psi_time])
-        out_valid[rows, psi_time] = out_valid[rows, psi_time] | fin
-        psi_valid = psi_valid & ~fin
-        lw, parts = new_lw, new_parts
+    # The carry: the step overwrites these in place, site after site.
+    carry = _MarginalCarry(lw, parts, psi, psi_time, psi_valid, out, out_valid, spill, shifts,
+                           degen, torch.tensor([0, 1], dtype=torch.int64, device=dev),
+                           torch.ones((), dtype=torch.bool, device=dev))
+    step = lambda last=False: _marginal_step(params, emission_control, emission_case, M, generator, uniforms,
+                                             epsilon, carry, last)
+    with SiteLoop(dev, sites_per_graph, generator) as loop:
+        loop.run(step, T - 2)
+        if T > 1:
+            step(last=True)
 
     return MarginalResult(
         functionals=out[:, :T],
@@ -321,3 +297,82 @@ def run_marginal_filter(
         spill_count=spill,
         degenerate_steps=degen.sum(dim=-1),
     )
+
+
+class _MarginalCarry(NamedTuple):
+    """What the marginal filter's site step reads and overwrites in place."""
+
+    lw: torch.Tensor  # (U, N) renormalised log weights
+    parts: torch.Tensor  # (U, 5, N) int32 particles
+    psi: torch.Tensor  # (U, S, F, C) smoothing statistics of the pending times
+    psi_time: torch.Tensor  # (U, S) int64 their times (T: a free slot)
+    psi_valid: torch.Tensor  # (U, S) bool
+    out: torch.Tensor  # (U, T + 1, F) finalised estimates
+    out_valid: torch.Tensor  # (U, T + 1) bool
+    spill: torch.Tensor  # (U,) int64
+    shifts: torch.Tensor  # (U, T - 1)
+    degen: torch.Tensor  # (U, T - 1) bool
+    idx: torch.Tensor  # (2,) int64: (t - 1, t) of the next site
+    true: torch.Tensor  # () bool: a value written by index (a Python True is a host copy)
+
+
+def _marginal_step(params, emission_control, emission_case, M, generator, uniforms, epsilon,
+                   c: _MarginalCarry, last=False):
+    """One site t of the marginal filter's loop, replayable as a CUDA graph:
+    t is read from the device index ``c.idx`` = (t - 1, t), which the step
+    then advances; every tensor of the carry is written in place. ``last``:
+    the last site, where every pending time finalises."""
+    R = params.n_regimes
+    U, S = c.psi_time.shape
+    T = c.out.shape[1] - 1
+    f32 = c.psi.dtype
+    t_prev, t = c.idx[:1], c.idx[1:]
+    if uniforms is None:
+        u_sys, u_mult = _draw_uniforms(generator, U, M, c.lw.device)
+    else:
+        u_sys = uniforms[0].index_select(1, t_prev)[:, 0]
+        u_mult = uniforms[1].index_select(1, t_prev)[:, 0]
+    row_c = emission_control.index_select(-2, t).squeeze(-2)
+    row_k = emission_case.index_select(-2, t).squeeze(-2)
+    new_lw, new_parts, parents = _one_step(params, row_c, row_k, c.lw, c.parts, M, u_sys, u_mult,
+                                           return_parents=True)
+    new_lw, shift, degenerate = _renormalise(new_lw)
+    c.shifts.index_copy_(1, t_prev, shift[:, None])
+    c.degen.index_copy_(1, t_prev, degenerate[:, None])
+    w_self = _compact_sum(torch.where(torch.isfinite(new_lw), torch.exp(new_lw), 0.0).to(f32), R, M)
+    new_cols = State(*(_compact_rep(f, R, M) for f in new_parts.unbind(1)))
+
+    prev = State(*c.parts.unbind(1))
+    anc = State(*(f.gather(1, parents) for f in prev))
+    psi_in = torch.where(c.psi_valid[:, :, None, None], c.psi, 0.0)
+    w_prev = torch.where(torch.isfinite(c.lw), torch.exp(c.lw), 0.0).to(f32)
+    psi = _structured_psi_update_compact(params, prev, w_prev, anc, psi_in)
+
+    # Insert time t: a free slot, else force-finalise the oldest.
+    units = torch.arange(U, device=c.lw.device)
+    psi_valid, psi_time, out, out_valid = c.psi_valid, c.psi_time, c.out, c.out_valid
+    has_free = (~psi_valid).any(dim=1)
+    ins = torch.where(has_free, (~psi_valid).to(torch.int8).argmax(dim=1),
+                      torch.where(psi_valid, psi_time, T + 1).argmin(dim=1))
+    means_ins = torch.einsum("ufn,un->uf", psi[units, ins], w_self)
+    c.spill.add_((~has_free).to(torch.int64))
+    victim = psi_time[units, ins]
+    out[units, victim] = torch.where(has_free[:, None], out[units, victim], means_ins)
+    out_valid[units, victim] = out_valid[units, victim] | ~has_free
+    psi[units, ins] = _test_functions(new_cols, R)
+    psi_time.index_put_((units, ins), t.expand(U))
+    psi_valid.index_put_((units, ins), c.true.expand(U))
+
+    # Finalise: every filtered variance below epsilon, or the last site.
+    means = torch.einsum("usfn,un->usf", psi, w_self)
+    sumsq = torch.einsum("usfn,un->usf", psi * psi, w_self)
+    var = sumsq - means * means
+    fin = psi_valid & ((var < epsilon).all(dim=2) | last)
+    rows = units[:, None].expand(U, S)
+    out[rows, psi_time] = torch.where(fin[..., None], means, out[rows, psi_time])
+    out_valid[rows, psi_time] = out_valid[rows, psi_time] | fin
+    psi_valid.copy_(psi_valid & ~fin)
+    c.psi.copy_(psi)
+    c.lw.copy_(new_lw)
+    c.parts.copy_(new_parts)
+    c.idx.add_(1)

@@ -200,7 +200,7 @@ def _write_seed_files(path, flags, s, log_norm, times, times_backward):
 
 
 def _run_marginal_m(path, seeds, seeds_per_call, params, E_c, E_k, M, N, ret, epsilon, window,
-                    all_log_norm, times, device, trace_dir=None):
+                    all_log_norm, times, device, trace_dir, sites_per_graph):
     """The marginal filter for one particle budget M, chunk by chunk of
     seeds: one site loop a chunk; writes each seed's split and regime
     probabilities (the npz names and shapes of the backward-simulation
@@ -214,7 +214,7 @@ def _run_marginal_m(path, seeds, seeds_per_call, params, E_c, E_k, M, N, ret, ep
             t0 = time.perf_counter()
             res = run_marginal_filter(params, E_c, E_k, M, n_units=len(chunk),
                                       generator=_generator(device, chunk, 0), epsilon=epsilon,
-                                      smoothing_window=window)
+                                      smoothing_window=window, sites_per_graph=sites_per_graph)
             fn = res.functionals.cpu().numpy()
             log_z, spill = res.log_normalizing_constant.cpu().numpy(), res.spill_count.cpu().numpy()
             degen = res.degenerate_steps.cpu().numpy()
@@ -339,9 +339,9 @@ def infer_segment(
     INFER filter always takes the optimal resampler (whose fallback is
     multinomial).
 
-    sites_per_graph: the filter's and the backward pass's sites a CUDA
-    graph on the card (0: eagerly, only to compare the two; the same
-    files either way); the marginal filter's loop runs eagerly."""
+    sites_per_graph: the site loops' sites a CUDA graph on the card (the
+    filter's, the backward pass's or the marginal filter's; 0: eagerly,
+    only to compare the two; the same files either way)."""
     device = torch.device(device)
     mu = np.asarray(mu, np.float64)
     R = len(mu)
@@ -406,7 +406,7 @@ def infer_segment(
             seeds_per_call = min(seeds_per_call, max(1, int(max_seeds_per_call)))
         if marginal:
             _run_marginal_m(path, seeds, seeds_per_call, params, E_c, E_k, M, N, ret, marginal_epsilon,
-                            marginal_window, all_log_norm, times, device, trace_dir)
+                            marginal_window, all_log_norm, times, device, trace_dir, sites_per_graph)
             continue
 
         outs = {}

@@ -12,7 +12,10 @@ a ``torch.Generator`` on the device (``draw_chain_noise``), or handed in as
 from its threefry keys, and the states are then JAX's exactly. Every
 categorical is a Gumbel-max, ``argmax(gumbel + logits)`` with the first
 maximum on ties, as ``jax.random.categorical`` draws it; a jump is
-``u < rho``. The site loop is tensor ops only: no ``.item()``, no host sync.
+``u < rho``. The site loop is a step that reads its site from a device
+index and writes its carry in place, with no ``.item()`` and no host
+sync, so on a CUDA device it replays as CUDA graphs (ops/site_graphs.py;
+the JAX module's chain is a ``lax.scan``).
 
 The observations are Beta draws as G1 / (G1 + G2) of two standard Gamma
 draws, then Binomial draws, all from the same generator, in float64 (a
@@ -28,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from hygeia_tpu_torch.ops.hazard import gather_rho
+from hygeia_tpu_torch.ops.site_graphs import SITES_PER_GRAPH, SiteLoop
 from hygeia_tpu_torch.two_group.backward import gumbel
 from hygeia_tpu_torch.two_group.model import State, TwoGroupParams
 
@@ -113,19 +117,44 @@ def sample_transition(params: TwoGroupParams, prev: State, noise, *, step0=False
     return State(m=m.to(torch.int32), d_c=d_c, r_c=r_c, d_k=d_k, r_k=r_k)
 
 
-def simulate_chain(params: TwoGroupParams, noise: ChainNoise) -> torch.Tensor:
-    """(T, 5) int32 states of the joint chain, on the parameters' device."""
+def simulate_chain(params: TwoGroupParams, noise: ChainNoise,
+                   sites_per_graph: int = SITES_PER_GRAPH) -> torch.Tensor:
+    """(T, 5) int32 states of the joint chain, on the parameters' device.
+
+    Site 0 (drawn from the phantom state) runs eagerly; sites 1..T-1 run
+    as ``_chain_step``, on a CUDA device through CUDA graphs of
+    ``sites_per_graph`` sites (0: eagerly, only to compare the two; the
+    same states either way), on the CPU eagerly."""
     dev = params.device
     nz = ChainNoise(*(torch.as_tensor(x, device=dev) for x in noise))
     T = nz.u_c.shape[0]
-    r = nz.phantom_r.to(torch.int32)
+    # One state, carried with a leading axis of 1: a 0-dim index tensor is
+    # read on the host, which a captured step may not do.
+    r = nz.phantom_r.to(torch.int32).reshape(1)
     z = torch.zeros_like(r)
     prev = State(m=torch.ones_like(r), d_c=z, r_c=r, d_k=z, r_k=r)  # the phantom state
     states = torch.empty((T, 5), dtype=torch.int32, device=dev)
-    for t in range(T):
-        prev = sample_transition(params, prev, tuple(x[t] for x in nz[1:]), step0=t == 0)
-        states[t] = torch.stack(prev)
+    if T == 0:
+        return states
+    first = sample_transition(params, prev, tuple(x[:1] for x in nz[1:]), step0=True)
+    states[:1] = torch.stack(first, dim=-1)
+    carry = tuple(f.clone() for f in first)
+    t = torch.ones((1,), dtype=torch.int64, device=dev)  # the next site
+    with SiteLoop(dev, sites_per_graph) as loop:
+        loop.run(lambda: _chain_step(params, nz, t, carry, states), T - 1)
     return states
+
+
+def _chain_step(params, nz: ChainNoise, t, carry, states):
+    """Site t of the chain, replayable as a CUDA graph: row t of each noise
+    array and of ``states`` through the device index ``t``, which the
+    step then advances; the carried state (five (1,) int32 tensors)
+    overwritten in place."""
+    nxt = sample_transition(params, State(*carry), tuple(x.index_select(0, t) for x in nz[1:]))
+    states.index_copy_(0, t, torch.stack(nxt, dim=-1))
+    for c, f in zip(carry, nxt):
+        c.copy_(f)
+    t.add_(1)
 
 
 def sample_beta_binomial(n_total, alpha, beta, *, generator):

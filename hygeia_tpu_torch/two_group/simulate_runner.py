@@ -125,15 +125,9 @@ def write_inference(results_dir, N, seed, traj, split, regime):
         hio.savez_fast(os.path.join(results_dir, f"optimal_{name}_{N}_{seed}"), arr)
 
 
-def simulate_two_groups(args, device):
-    """Simulate on ``device`` and write the JAX verb's files under
-    ``args.results_dir``; with ``args.run_inference`` also run the filter
-    and the backward pass there. Returns a dict: the states, the wall
-    seconds of the simulation (``simulate_s``), and with inference
-    ``log_z``, ``recovery`` (control-regime recovery), ``degenerate_steps``,
-    ``filter_s`` and ``backward_s``."""
-    device = torch.device(device)
-    os.makedirs(args.results_dir, exist_ok=True)
+def simulation_params(args, device):
+    """(params on ``device``, n_total_control, n_total_case): the verb's
+    model parameters and (T, S) depths (``simulation_inputs``)."""
     mu, sigma, log_p, n_c, n_k = simulation_inputs(args)
     R = len(mu)
     params = make_params(
@@ -150,6 +144,20 @@ def simulate_two_groups(args, device):
         d_max=max(64, args.n_observations + 1),
         device=device,
     )
+    return params, n_c, n_k
+
+
+def simulate_two_groups(args, device):
+    """Simulate on ``device`` and write the JAX verb's files under
+    ``args.results_dir``; with ``args.run_inference`` also run the filter
+    and the backward pass there. Returns a dict: the states, the wall
+    seconds of the simulation (``simulate_s``), and with inference
+    ``log_z``, ``recovery`` (control-regime recovery), ``degenerate_steps``,
+    ``filter_s`` and ``backward_s``."""
+    device = torch.device(device)
+    os.makedirs(args.results_dir, exist_ok=True)
+    params, n_c, n_k = simulation_params(args, device)
+    R = params.n_regimes
     T = args.n_observations
     _sync(device)
     t0 = time.perf_counter()

@@ -643,11 +643,13 @@ def test_graphed_filter_and_backward_equal_eager(device, K):
 
 
 @pytest.mark.parametrize("K", [1, 3, 8])
-def test_graphed_engine_equals_eager(device, K):
+def test_graphed_engine_equals_eager(device, K, monkeypatch):
     """The single-group engine at the CLI's width (N = 250) with updates
     every 50 sites, over 600 sites, for 3 units with t_limit (600, 333,
-    517): the steady and past-the-limit sites replayed as graphs of K sites
-    equal the eager run bit for bit, and K1's count is T - 1 either way."""
+    517): the steady, update and past-the-limit sites replayed as graphs
+    (K sites, one site at an update) equal the eager run bit for bit, and
+    K1's count is T - 1 either way."""
+    from hygeia_tpu_torch.ops import site_graphs
     from hygeia_tpu_torch.ops.emissions import emission_log_prob_table
     from hygeia_tpu_torch.single_group.engine import EngineConfig, run_online_combined_inference
     from hygeia_tpu_torch.single_group.model import make_model, parameters_to_theta
@@ -663,6 +665,14 @@ def test_graphed_engine_equals_eager(device, K):
     y = rng.binomial(n, np.repeat(rng.uniform(0, 1, T // 50), 50)[None, :, None])
     E = torch.stack([emission_log_prob_table(y[u], n[u], model.alpha, model.beta) for u in range(3)])
     cfg = EngineConfig(estimate_parameters=True, steps_per_update=50)
+    captured = []
+    graph = site_graphs.SiteLoop._graph
+
+    def record(loop, step, kind, sites):
+        captured.append((kind, sites))
+        return graph(loop, step, kind, sites)
+
+    monkeypatch.setattr(site_graphs.SiteLoop, "_graph", record)
     out = {}
     for k in (0, K):
         before = cr.KERNEL.launches
@@ -671,9 +681,57 @@ def test_graphed_engine_equals_eager(device, K):
                                             t_limit=[600, 333, 517], sites_per_graph=k)
         assert cr.KERNEL.launches - before == T - 1
         out[k] = res
+    assert {("update", 1), ("frozen update", 1)} <= set(captured)
     for name, a, b in zip(out[0]._fields, out[0], out[K]):
         for x, y in zip(a, b) if isinstance(a, tuple) else [(a, b)]:
             assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("K", [1, 3, 8])
+def test_graphed_marginal_filter_equals_eager(device, K):
+    """run_marginal_filter at M = 50 (N = 2400), U = 2 units on one
+    generator, T = 206, a window of 8 pending times that spills: replayed
+    as graphs of K sites it equals the eager run (sites_per_graph=0) bit
+    for bit, and K1's count is T - 1 either way."""
+    from hygeia_tpu_torch.two_group.marginal import run_marginal_filter
+
+    T, U, M = 206, 2, 50
+    params = _graph_params(device, T)
+    E_c, E_k = _graph_tables(params, T, U, seed=K + 20)
+    out = {}
+    for k in (0, K):
+        before = cr.KERNEL.launches
+        out[k] = run_marginal_filter(params, E_c, E_k, M, n_units=U, smoothing_window=8, sites_per_graph=k,
+                                     generator=torch.Generator(device=device).manual_seed(3))
+        assert cr.KERNEL.launches - before == T - 1
+    assert int(out[0].spill_count.sum()) > 0
+    for name, a, b in zip(out[0]._fields, out[0], out[K]):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("K", [1, 3, 8])
+def test_graphed_simulator_chains_equal_eager(device, K):
+    """Both simulators' chains (two-group, 600 sites; single-group at the
+    verb's model, 800 sites) replayed as graphs of K sites equal their
+    eager runs bit for bit."""
+    from hygeia_tpu_torch.single_group import simulate as sg_sim
+    from hygeia_tpu_torch.single_group.model import make_model, parameters_to_theta
+    from hygeia_tpu_torch.single_group.runner import DEFAULT_MU, DEFAULT_OMEGA, DEFAULT_SIGMA, default_p
+    from hygeia_tpu_torch.two_group import simulate as tg_sim
+
+    R, T = 6, 600
+    params = _graph_params(device, T)
+    noise = tg_sim.draw_chain_noise(T, R, generator=torch.Generator(device=device).manual_seed(K), device=device)
+    states = [tg_sim.simulate_chain(params, noise, sites_per_graph=k) for k in (0, K)]
+    assert torch.equal(states[0], states[1])
+
+    T = 800
+    noise = sg_sim.draw_chain_noise(T, R, generator=torch.Generator(device=device).manual_seed(K), device=device)
+    theta = parameters_to_theta(default_p(R), np.asarray(DEFAULT_OMEGA), np.full(R, 2.0))
+    model = make_model(np.asarray(DEFAULT_MU), DEFAULT_SIGMA, 2, np.full(R, 2.0), d_max=4096, device=device)
+    theta = torch.as_tensor(theta, dtype=torch.float32, device=device)
+    (d0, r0), (d1, r1) = (sg_sim.simulate_chain(model, theta, noise, sites_per_graph=k) for k in (0, K))
+    assert torch.equal(d0, d1) and torch.equal(r0, r1)
 
 
 def test_streamed_graphed_equals_eager_monolithic(device):
