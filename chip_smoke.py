@@ -1699,7 +1699,7 @@ def _trace_shares(path):
     launch_ts = {e["args"]["correlation"]: e["ts"] for e in calls}
     graph_calls = {e["args"]["correlation"] for e in calls if "GraphLaunch" in e["name"]}
     ranges = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
-              if e.get("cat") == "user_annotation" and e["name"] in ("infer.filter", "infer.backward")}
+              if e.get("name") in ("infer.filter", "infer.backward")}
     in_range = {name: 0 for name in ranges}
     graph_kernels = {name: 0 for name in ranges}
     graph_launches = {name: sum(lo <= launch_ts[c] <= hi for c in graph_calls) for name, (lo, hi) in ranges.items()}

@@ -154,7 +154,7 @@ def build_parser():
                          "many sites: one block of history on the device; the same outputs "
                          "as without it")
     sp.add_argument("--trace_dir", default=None,
-                    help="write a torch.profiler trace of each seed chunk's computation here")
+                    help="write a torch.profiler trace of the call here, its phases as named ranges")
     sp.add_argument("--chrom", default="22")
     sp.add_argument("--results_dir", default="test")
     sp.add_argument("--data_dir", default="data")

@@ -30,13 +30,27 @@ or replay raises; nothing falls back to the eager route.
 K1's launch count counts executions: its wrapper counts the launches a
 capture records apart (``KERNEL.captured``), and each replay adds its
 graph's count to ``KERNEL.launches``.
+
+Spans (utils/spans.py): each ``run`` is a ``site_loop.run`` span (kind,
+sites), with a ``site_loop.warm`` span for a kind's eager first site and a
+``site_loop.capture`` span for each graph made (kind, sites, nodes); once a
+``run`` it adds the sites it replayed and the graph nodes they executed to
+the counters ``site_loop.sites_replayed`` and ``site_loop.nodes_replayed``,
+for the graphs captured while the recorder was on: their nodes are counted
+at the end of the capture, from the graph being captured, so every graph
+is made the same way whether the recorder is on or off. While the recorder
+is on, the spans wait for the device at their ends and a capture waits for
+it before it starts, so each measures its own work.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
+from hygeia_tpu_torch.utils import spans
 
 # Sites a graph: JAX's filter unroll (hygeia_tpu/two_group/filter.py).
 SITES_PER_GRAPH = 8
@@ -50,6 +64,35 @@ def _loop_stream(device):
     if device.index not in _STREAMS:
         _STREAMS[device.index] = torch.cuda.Stream(device)
     return _STREAMS[device.index]
+
+
+_LIBCUDA = {}
+
+
+def _libcuda(name, *argtypes):
+    if name not in _LIBCUDA:
+        fn = getattr(ctypes.CDLL("libcuda.so.1"), name)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        _LIBCUDA[name] = fn
+    return _LIBCUDA[name]
+
+
+def captured_nodes(stream):
+    """Nodes of the graph being captured on ``stream`` so far: libcuda's
+    ``cuStreamGetCaptureInfo_v2`` for the graph, ``cuGraphGetNodes`` for
+    its count."""
+    p = ctypes.POINTER
+    info = _libcuda("cuStreamGetCaptureInfo_v2", ctypes.c_void_p, p(ctypes.c_int), p(ctypes.c_uint64),
+                   p(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_void_p)
+    get_nodes = _libcuda("cuGraphGetNodes", ctypes.c_void_p, ctypes.c_void_p, p(ctypes.c_size_t))
+    status, graph, n = ctypes.c_int(0), ctypes.c_void_p(), ctypes.c_size_t(0)
+    err = info(stream.cuda_stream, ctypes.byref(status), None, ctypes.byref(graph), None, None)
+    if err or status.value != 1:  # CU_STREAM_CAPTURE_STATUS_ACTIVE
+        raise RuntimeError(f"cuStreamGetCaptureInfo_v2: CUresult {err}, capture status {status.value}")
+    err = get_nodes(graph, None, ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"cuGraphGetNodes: CUresult {err}")
+    return n.value
 
 
 class SiteLoop:
@@ -74,6 +117,7 @@ class SiteLoop:
         gens = generator if isinstance(generator, (list, tuple)) else [generator]
         self.generators = [g for g in gens if g is not None]
         self.graphs = {}  # (kind, sites) -> (graph, K1 launches a replay)
+        self.nodes = {}  # (kind, sites) -> the graph's nodes, if captured while recording
         self.warm = set()
         self._pool = self._stream = self._ctx = None
 
@@ -93,6 +137,7 @@ class SiteLoop:
             self._ctx.__exit__(*exc)
             torch.cuda.current_stream(self.device).wait_stream(self._stream)
         self.graphs.clear()  # frees the graphs and their pool
+        self.nodes.clear()
         self._pool = self._ctx = None
         return False
 
@@ -100,33 +145,45 @@ class SiteLoop:
         n = int(n)
         if n <= 0:
             return
-        if not self.graphed:
-            for _ in range(n):
-                step()
-            return
-        if kind not in self.warm:
-            step()
-            self.warm.add(kind)
-            n -= 1
-        full, rest = divmod(n, self.K)
-        for sites, reps in ((self.K, full), (1, rest)):
-            if reps:
-                graph, launches = self._graph(step, kind, sites)
-                for _ in range(reps):
-                    graph.replay()
-                    KERNEL.launches += launches
+        with spans.span("site_loop.run", sync=self.device if self.graphed else None, kind=kind, sites=n):
+            if not self.graphed:
+                for _ in range(n):
+                    step()
+                return
+            if kind not in self.warm:
+                with spans.span("site_loop.warm", sync=self.device, kind=kind):
+                    step()
+                self.warm.add(kind)
+                n -= 1
+            full, rest = divmod(n, self.K)
+            for sites, reps in ((self.K, full), (1, rest)):
+                if reps:
+                    graph, launches = self._graph(step, kind, sites)
+                    for _ in range(reps):
+                        graph.replay()
+                        KERNEL.launches += launches
+                    nodes = self.nodes.get((kind, sites))
+                    if nodes is not None and spans.recording():
+                        spans.count("site_loop.sites_replayed", sites * reps)
+                        spans.count("site_loop.nodes_replayed", nodes * reps)
 
     def _graph(self, step, kind, sites):
         key = (kind, sites)
         if key not in self.graphs:
-            graph = torch.cuda.CUDAGraph()
-            for g in self.generators:
-                graph.register_generator_state(g)
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            before = KERNEL.captured
-            with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
-                for _ in range(sites):
-                    step()
-            self.graphs[key] = (graph, KERNEL.captured - before)
+            if spans.recording():
+                torch.cuda.synchronize(self.device)  # the capture's span holds no earlier work
+            with spans.span("site_loop.capture", kind=kind, sites=sites):
+                graph = torch.cuda.CUDAGraph()
+                for g in self.generators:
+                    graph.register_generator_state(g)
+                if self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                before = KERNEL.captured
+                with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
+                    for _ in range(sites):
+                        step()
+                    if spans.recording():
+                        self.nodes[key] = captured_nodes(self._stream)
+                        spans.annotate(nodes=self.nodes[key])
+                self.graphs[key] = (graph, KERNEL.captured - before)
         return self.graphs[key]

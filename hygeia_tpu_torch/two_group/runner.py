@@ -10,12 +10,20 @@ through two_group/streaming.py, which holds one W-site block. The seeds of
 a chunk run together as the leading unit axis U. Output files, names and
 dtypes are the JAX runner's.
 
-``trace_dir`` profiles each chunk of seeds with ``torch.profiler`` (CPU
-activity, and CUDA activity on the card) and writes one Chrome-format
-trace a chunk there (``tensorboard_trace_handler``; the JAX runner writes
-its profiler's TensorBoard profile). On the monolithic path the filter and
-the backward pass run inside the ranges ``infer.filter`` and
-``infer.backward``, which the trace shows. Tracing changes no output.
+``infer_segment``'s phases are spans (utils/spans.py): the call
+``infer.call`` (chrom, batch, units, sites) and, inside it, ``infer.read``
+(theta, positions and counts, the slice and the count check),
+``infer.tables`` (the model's parameters and the emission tables; it waits
+for the device at its end while the recorder is on), ``infer.write`` (the
+observation files, the unit archives, the seed files) and, on the
+monolithic path, ``infer.filter``, ``infer.backward`` (with the
+functionals) and ``infer.fetch`` (the copies to the host).
+
+``trace_dir`` profiles each call with ``torch.profiler`` (CPU activity,
+and CUDA activity on the card) and writes one Chrome-format trace a call
+there (``tensorboard_trace_handler``; the JAX runner writes its profiler's
+TensorBoard profile), in which the spans show as ranges of their names.
+Tracing changes no output.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from hygeia_tpu_torch.two_group.filter import HISTORY_BYTES_PER_PARTICLE_SITE, r
 from hygeia_tpu_torch.two_group.model import make_params
 from hygeia_tpu_torch.two_group.streaming import block_bounds, streamed_inference
 from hygeia_tpu_torch.utils import io as hio
+from hygeia_tpu_torch.utils import spans
 
 DEFAULT_MU = (0.95, 0.05, 0.80, 0.20, 0.50, 0.50)
 DEFAULT_SIGMA = (0.05, 0.05, 0.1, 0.1, 0.1, 0.2886751)
@@ -200,7 +209,7 @@ def _write_seed_files(path, flags, s, log_norm, times, times_backward):
 
 
 def _run_marginal_m(path, seeds, seeds_per_call, params, E_c, E_k, M, N, ret, epsilon, window,
-                    all_log_norm, times, device, trace_dir, sites_per_graph):
+                    all_log_norm, times, device, sites_per_graph):
     """The marginal filter for one particle budget M, chunk by chunk of
     seeds: one site loop a chunk; writes each seed's split and regime
     probabilities (the npz names and shapes of the backward-simulation
@@ -209,24 +218,24 @@ def _run_marginal_m(path, seeds, seeds_per_call, params, E_c, E_k, M, N, ret, ep
 
     for c0 in range(0, len(seeds), seeds_per_call):
         chunk = seeds[c0 : c0 + seeds_per_call]
-        with _profile(trace_dir, device):
-            _sync(device)
-            t0 = time.perf_counter()
-            res = run_marginal_filter(params, E_c, E_k, M, n_units=len(chunk),
-                                      generator=_generator(device, chunk, 0), epsilon=epsilon,
-                                      smoothing_window=window, sites_per_graph=sites_per_graph)
-            fn = res.functionals.cpu().numpy()
-            log_z, spill = res.log_normalizing_constant.cpu().numpy(), res.spill_count.cpu().numpy()
-            degen = res.degenerate_steps.cpu().numpy()
-            elapsed = time.perf_counter() - t0
-        for i, s in enumerate(chunk):
-            _report_degenerate(f"seed {s}", degen[i])
-            times[s][N] = elapsed / len(chunk)
-            all_log_norm[s][N] = float(log_z[i])
-            hio.savez_fast(os.path.join(path, f"optimal_split_probs_{N}_{s}"), fn[i, ret, 0])
-            hio.savez_fast(os.path.join(path, f"optimal_regime_probs_{N}_{s}"), fn[i, ret, 1:])
-            print(f"marginal filter seed {s}: spill_count={int(spill[i])}"
-                  + (" (pending times force-finalised: smoothing window spill)" if spill[i] else ""))
+        _sync(device)
+        t0 = time.perf_counter()
+        res = run_marginal_filter(params, E_c, E_k, M, n_units=len(chunk),
+                                  generator=_generator(device, chunk, 0), epsilon=epsilon,
+                                  smoothing_window=window, sites_per_graph=sites_per_graph)
+        fn = res.functionals.cpu().numpy()
+        log_z, spill = res.log_normalizing_constant.cpu().numpy(), res.spill_count.cpu().numpy()
+        degen = res.degenerate_steps.cpu().numpy()
+        elapsed = time.perf_counter() - t0
+        with spans.span("infer.write"):
+            for i, s in enumerate(chunk):
+                _report_degenerate(f"seed {s}", degen[i])
+                times[s][N] = elapsed / len(chunk)
+                all_log_norm[s][N] = float(log_z[i])
+                hio.savez_fast(os.path.join(path, f"optimal_split_probs_{N}_{s}"), fn[i, ret, 0])
+                hio.savez_fast(os.path.join(path, f"optimal_regime_probs_{N}_{s}"), fn[i, ret, 1:])
+                print(f"marginal filter seed {s}: spill_count={int(spill[i])}"
+                      + (" (pending times force-finalised: smoothing window spill)" if spill[i] else ""))
 
 
 def _report_degenerate(label, d):
@@ -259,21 +268,22 @@ def _infer_chunk(params, E_c, E_k, M, B, R, chunk, device, streaming_blocks, tim
         # One wall for both sweeps; the backward file records 0, as the JAX
         # runner's streamed path does.
         return log_z, traj, split, regime, degen, (time.perf_counter() - t0) / len(chunk), 0.0
-    with torch.profiler.record_function("infer.filter"):
+    with spans.span("infer.filter"):
         res = run_filter(params, E_c, E_k, M, n_units=len(chunk), generator=_generator(device, chunk, 0),
                          sites_per_graph=K)
         _sync(device)
     t1 = time.perf_counter()
-    with torch.profiler.record_function("infer.backward"):
+    with spans.span("infer.backward"):
         traj = backward_simulation(params, res.log_weights, res.particles, B,
                                    generator=_generator(device, chunk, 1), sites_per_graph=K)
         split, regime = smoothing_functionals(traj, R)
         _sync(device)
     t2 = time.perf_counter()
-    log_z = res.log_normalizing_constant.cpu().numpy()
-    degen = res.degenerate_steps.cpu().numpy()
-    del res  # frees the chunk's (U, T, N) history
-    traj, split, regime = traj.cpu().numpy(), split.cpu().numpy(), regime.cpu().numpy()
+    with spans.span("infer.fetch"):
+        log_z = res.log_normalizing_constant.cpu().numpy()
+        degen = res.degenerate_steps.cpu().numpy()
+        del res  # frees the chunk's (U, T, N) history
+        traj, split, regime = traj.cpu().numpy(), split.cpu().numpy(), regime.cpu().numpy()
     return log_z, traj, split, regime, degen, (t1 - t0) / len(chunk), (t2 - t1) / len(chunk)
 
 
@@ -332,8 +342,8 @@ def infer_segment(
     optimal_regime_probs_{N}_{s}), no trajectories, with marginal_epsilon
     and marginal_window (pending times a unit holds).
 
-    trace_dir: a ``torch.profiler`` trace of each chunk of seeds is written
-    there, in every mode (monolithic, streamed, robust, marginal).
+    trace_dir: a ``torch.profiler`` trace of the call is written there, in
+    every mode (monolithic, streamed, robust, marginal).
 
     multinomial is recorded in the flags files only: as in hygeia_tpu, the
     INFER filter always takes the optimal resampler (whose fallback is
@@ -345,92 +355,97 @@ def infer_segment(
     device = torch.device(device)
     mu = np.asarray(mu, np.float64)
     R = len(mu)
-
-    theta = hio.read_theta(os.path.join(single_group_dir, f"theta_{chrom}.csv.gz"))
-    p_softmax, omega_logit_control = hio.theta_file_to_p_softmax(theta, R)
-
-    positions = hio.read_positions(os.path.join(data_dir, f"positions_{chrom}.txt.gz"))
-    window = segment_window(len(positions), batch, segment_size, buffer_size)
-    if window is None:
-        print("Batch index is too large for the chromosome")
-        return None
-    sl, ret = window
-    sl = slice(sl.start, sl.stop)
-    ret = slice(ret.start, ret.stop)
-
-    def _load(name):
-        return hio.read_count_matrix(os.path.join(data_dir, f"{name}_{chrom}.txt.gz"))[sl]
-
-    n_total_control = _load("n_total_reads_control")
-    n_meth_control = _load("n_methylated_reads_control")
-    n_total_case = _load("n_total_reads_case")
-    n_meth_case = _load("n_methylated_reads_case")
-    positions = positions[sl]
-    if np.any(n_total_case < n_meth_case) or np.any(n_total_control < n_meth_control):
-        raise ValueError("methylated read counts exceed total read counts")
-    T = n_total_control.shape[0]
-
-    path = os.path.join(results_dir, f"chrom_{chrom}_{batch}")
-    os.makedirs(path, exist_ok=True)
-    for name, arr in (
-        ("observations_control", n_meth_control.astype(np.int16)),
-        ("observations_case", n_meth_case.astype(np.int16)),
-        ("n_total_reads_control", n_total_control.astype(np.int16)),
-        ("n_total_reads_case", n_total_case.astype(np.int16)),
-        ("positions", positions),
-    ):
-        hio.write_count_matrix(os.path.join(path, f"{name}.csv.gz"), arr[ret])
-
-    params = _make_params(mu, sigma, p_softmax, omega_logit_control, omega_case, merge_log_prob,
-                          split_prob, minimum_duration, max(64, T + 1), device)
-    E_c, E_k = _emission_tables(n_meth_control, n_total_control, n_meth_case, n_total_case, params,
-                                robust, robust_beta)
-
     seeds = [seed] if np.isscalar(seed) else list(seed)
-    all_log_norm = {s: {} for s in seeds}
-    times = {s: {} for s in seeds}
-    times_backward = {s: {} for s in seeds}
-    budget = memory_budget_bytes(device)
-    B = num_samples_backward
+    with _profile(trace_dir, device), spans.span("infer.call", chrom=str(chrom), batch=batch, units=len(seeds)):
+        with spans.span("infer.read"):
+            theta = hio.read_theta(os.path.join(single_group_dir, f"theta_{chrom}.csv.gz"))
+            p_softmax, omega_logit_control = hio.theta_file_to_p_softmax(theta, R)
 
-    for M in num_resampled_particles:
-        N = M * (2 * R + R * R)
-        if marginal:
-            per_seed = N * N * 8  # the JAX runner's rule for the marginal filter
-        elif streaming_blocks:
-            per_seed = bytes_per_streamed_unit(T, int(streaming_blocks), N, B)
-        else:
-            per_seed = bytes_per_seed(T, N, B)
-        seeds_per_call = max(1, int(budget // per_seed))
-        if max_seeds_per_call is not None:
-            seeds_per_call = min(seeds_per_call, max(1, int(max_seeds_per_call)))
-        if marginal:
-            _run_marginal_m(path, seeds, seeds_per_call, params, E_c, E_k, M, N, ret, marginal_epsilon,
-                            marginal_window, all_log_norm, times, device, trace_dir, sites_per_graph)
-            continue
+            positions = hio.read_positions(os.path.join(data_dir, f"positions_{chrom}.txt.gz"))
+            window = segment_window(len(positions), batch, segment_size, buffer_size)
+            if window is None:
+                print("Batch index is too large for the chromosome")
+                return None
+            sl, ret = window
+            sl = slice(sl.start, sl.stop)
+            ret = slice(ret.start, ret.stop)
 
-        outs = {}
-        for c0 in range(0, len(seeds), seeds_per_call):
-            chunk = seeds[c0 : c0 + seeds_per_call]
-            with _profile(trace_dir, device):
+            def _load(name):
+                return hio.read_count_matrix(os.path.join(data_dir, f"{name}_{chrom}.txt.gz"))[sl]
+
+            n_total_control = _load("n_total_reads_control")
+            n_meth_control = _load("n_methylated_reads_control")
+            n_total_case = _load("n_total_reads_case")
+            n_meth_case = _load("n_methylated_reads_case")
+            positions = positions[sl]
+            if np.any(n_total_case < n_meth_case) or np.any(n_total_control < n_meth_control):
+                raise ValueError("methylated read counts exceed total read counts")
+        T = n_total_control.shape[0]
+        spans.annotate(sites=T)
+
+        path = os.path.join(results_dir, f"chrom_{chrom}_{batch}")
+        os.makedirs(path, exist_ok=True)
+        with spans.span("infer.write"):
+            for name, arr in (
+                ("observations_control", n_meth_control.astype(np.int16)),
+                ("observations_case", n_meth_case.astype(np.int16)),
+                ("n_total_reads_control", n_total_control.astype(np.int16)),
+                ("n_total_reads_case", n_total_case.astype(np.int16)),
+                ("positions", positions),
+            ):
+                hio.write_count_matrix(os.path.join(path, f"{name}.csv.gz"), arr[ret])
+
+        with spans.span("infer.tables", sync=device):
+            params = _make_params(mu, sigma, p_softmax, omega_logit_control, omega_case, merge_log_prob,
+                                  split_prob, minimum_duration, max(64, T + 1), device)
+            E_c, E_k = _emission_tables(n_meth_control, n_total_control, n_meth_case, n_total_case, params,
+                                        robust, robust_beta)
+
+        all_log_norm = {s: {} for s in seeds}
+        times = {s: {} for s in seeds}
+        times_backward = {s: {} for s in seeds}
+        budget = memory_budget_bytes(device)
+        B = num_samples_backward
+
+        for M in num_resampled_particles:
+            N = M * (2 * R + R * R)
+            if marginal:
+                per_seed = N * N * 8  # the JAX runner's rule for the marginal filter
+            elif streaming_blocks:
+                per_seed = bytes_per_streamed_unit(T, int(streaming_blocks), N, B)
+            else:
+                per_seed = bytes_per_seed(T, N, B)
+            seeds_per_call = max(1, int(budget // per_seed))
+            if max_seeds_per_call is not None:
+                seeds_per_call = min(seeds_per_call, max(1, int(max_seeds_per_call)))
+            if marginal:
+                _run_marginal_m(path, seeds, seeds_per_call, params, E_c, E_k, M, N, ret, marginal_epsilon,
+                                marginal_window, all_log_norm, times, device, sites_per_graph)
+                continue
+
+            outs = {}
+            for c0 in range(0, len(seeds), seeds_per_call):
+                chunk = seeds[c0 : c0 + seeds_per_call]
                 log_z, traj, split, regime, degen, t_f, t_b = _infer_chunk(
                     params, E_c, E_k, M, B, R, chunk, device, streaming_blocks, timings, sites_per_graph)
-            for i, s in enumerate(chunk):
-                _report_degenerate(f"seed {s}", degen[i])
-                outs[s] = (float(log_z[i]), traj[i], split[i], regime[i], t_f, t_b)
-        for s in seeds:
-            log_z, traj, split_s, regime_s, t_f, t_b = outs[s]
-            all_log_norm[s][N] = log_z
-            times[s][N] = t_f
-            times_backward[s][N] = t_b
-            _write_unit_outputs(path, N, s, traj, split_s, regime_s, ret)
+                for i, s in enumerate(chunk):
+                    _report_degenerate(f"seed {s}", degen[i])
+                    outs[s] = (float(log_z[i]), traj[i], split[i], regime[i], t_f, t_b)
+            with spans.span("infer.write"):
+                for s in seeds:
+                    log_z, traj, split_s, regime_s, t_f, t_b = outs[s]
+                    all_log_norm[s][N] = log_z
+                    times[s][N] = t_f
+                    times_backward[s][N] = t_b
+                    _write_unit_outputs(path, N, s, traj, split_s, regime_s, ret)
 
-    flags = _flags(chrom, batch, segment_size, buffer_size, mu, sigma, minimum_duration, omega_case,
-                   merge_log_prob, split_prob, num_resampled_particles, num_samples_backward,
-                   multinomial, robust, marginal, streaming_blocks)
-    for s in seeds:
-        _write_seed_files(path, flags, s, all_log_norm[s], times[s], times_backward[s])
-    return all_log_norm if len(seeds) > 1 else all_log_norm[seeds[0]]
+        with spans.span("infer.write"):
+            flags = _flags(chrom, batch, segment_size, buffer_size, mu, sigma, minimum_duration, omega_case,
+                           merge_log_prob, split_prob, num_resampled_particles, num_samples_backward,
+                           multinomial, robust, marginal, streaming_blocks)
+            for s in seeds:
+                _write_seed_files(path, flags, s, all_log_norm[s], times[s], times_backward[s])
+        return all_log_norm if len(seeds) > 1 else all_log_norm[seeds[0]]
 
 
 def infer_chromosome_streamed(

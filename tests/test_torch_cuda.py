@@ -506,25 +506,34 @@ def test_discrete_normal_on_the_card_equals_the_cpu(device):
         assert np.allclose(a[~same], b[~same], rtol=1e-12, atol=0), name
 
 
-def test_infer_trace_on_the_card_holds_cuda_kernels(device, tmp_path):
-    """infer_segment with trace_dir on the card: one Chrome trace with CUDA
-    kernel events, K1's among them, and the outputs of the untraced run."""
-    import json
-
-    from hygeia_tpu_torch.two_group.runner import infer_segment
+def _infer_dataset(root, T=120):
+    """A T-site chromosome "c" and its theta file under ``root``; the
+    keyword arguments of an infer_segment call of batch 0 over all of it
+    (segment 100 + halo 20, M = 10)."""
     from hygeia_tpu_torch.utils import io as hio
 
     rng = np.random.default_rng(2)
-    T = 120
-    data, sg = tmp_path / "data", tmp_path / "sg"
+    data, sg = root / "data", root / "sg"
     n = rng.poisson(20, size=(T, 2))
     hio.write_count_matrix(data / "positions_c.txt.gz", np.arange(1, T + 1) * 10)
     for g, p in (("control", 0.8), ("case", 0.3)):
         hio.write_count_matrix(data / f"n_total_reads_{g}_c.txt.gz", n)
         hio.write_count_matrix(data / f"n_methylated_reads_{g}_c.txt.gz", rng.binomial(n, p))
     hio.write_theta(sg / "theta_c.csv.gz", rng.normal(size=36))
-    kw = dict(data_dir=str(data), single_group_dir=str(sg), chrom="c", device=device, segment_size=100,
-              buffer_size=20, num_resampled_particles=(10,))
+    return dict(data_dir=str(data), single_group_dir=str(sg), chrom="c", segment_size=100,
+                buffer_size=20, num_resampled_particles=(10,))
+
+
+def test_infer_trace_on_the_card_holds_cuda_kernels(device, tmp_path):
+    """infer_segment with trace_dir on the card: one Chrome trace with CUDA
+    kernel events, K1's among them, and the runner's phases as host ranges;
+    and the outputs of the untraced run."""
+    import json
+
+    from hygeia_tpu_torch.two_group.runner import infer_segment
+
+    T = 120
+    kw = dict(_infer_dataset(tmp_path, T), device=device)
     before = cr.KERNEL.launches
     a = infer_segment(results_dir=str(tmp_path / "traced"), trace_dir=str(tmp_path / "trace"), **kw)
     assert cr.KERNEL.launches - before == T - 1
@@ -534,6 +543,72 @@ def test_infer_trace_on_the_card_holds_cuda_kernels(device, tmp_path):
     events = json.loads(trace.read_text())["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     assert kernels and any("optimal_resampling" in e["name"] for e in kernels)
+    assert {"infer.read", "infer.tables", "infer.write"} <= {e.get("name") for e in events}
+    # The spans are host ranges: none is mirrored onto the device's timeline,
+    # where a reading of the device's busy time would count it as work.
+    assert not [e for e in events if e.get("cat") == "gpu_user_annotation"
+                and e.get("name", "").startswith(("infer.", "site_loop."))]
+
+
+@pytest.fixture(scope="module")
+def recorded_card_call(tmp_path_factory):
+    """One infer_segment call on the card with the recorder off, then the
+    same call with it on: (output directories, spans and counters of the
+    second)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from hygeia_tpu_torch.two_group.runner import infer_segment
+    from hygeia_tpu_torch.utils import spans
+
+    root = tmp_path_factory.mktemp("spans")
+    kw = dict(_infer_dataset(root), device=torch.device("cuda", 0), seed=[0, 1])
+    spans.drain()
+    a = infer_segment(results_dir=str(root / "off"), **kw)
+    spans.enable()
+    try:
+        b = infer_segment(results_dir=str(root / "on"), **kw)
+    finally:
+        spans.disable()
+    got, counters = spans.drain()
+    assert a == b
+    return root / "off" / "chrom_c_0", root / "on" / "chrom_c_0", got, counters
+
+
+def test_infer_call_on_the_card_captures_four_graphs(recorded_card_call):
+    """The filter's and the backward pass's graphs of 8 sites and of one,
+    each captured once in its own loop, with its nodes counted."""
+    *_, got, _ = recorded_card_call
+    by_id = {s.id: s for s in got}
+    caps = [s for s in got if s.name == "site_loop.capture"]
+    phase = lambda s: by_id[by_id[s.parent].parent].name  # capture < site_loop.run < infer.*
+    assert sorted((phase(s), s.attrs["sites"]) for s in caps) == [
+        ("infer.backward", 1), ("infer.backward", 8), ("infer.filter", 1), ("infer.filter", 8)]
+    assert all(s.attrs["nodes"] > s.attrs["sites"] for s in caps)
+    assert len([s for s in got if s.name == "site_loop.warm"]) == 2
+
+
+def test_infer_call_on_the_card_counts_nodes_a_replayed_site(recorded_card_call):
+    *_, counters = recorded_card_call
+    # Each loop runs T - 1 = 119 sites, the first eagerly.
+    assert counters["site_loop.sites_replayed"] == 2 * 118
+    assert 100 <= counters["site_loop.nodes_replayed"] / counters["site_loop.sites_replayed"] <= 400
+
+
+def test_infer_call_on_the_card_writes_the_same_files_with_the_recorder_on(recorded_card_call):
+    import gzip
+    import os
+
+    off, on, _, _ = recorded_card_call
+    files = sorted(os.listdir(off))
+    assert files == sorted(os.listdir(on)) and any(f.endswith(".npz") for f in files)
+    for name in files:
+        if name.endswith(".npz"):
+            a, b = np.load(off / name)["arr_0"], np.load(on / name)["arr_0"]
+            assert a.dtype == b.dtype and np.array_equal(a, b), name
+        elif name.endswith(".gz"):  # the gzip header holds a time stamp
+            assert gzip.decompress((off / name).read_bytes()) == gzip.decompress((on / name).read_bytes())
+        elif not name.startswith("optimal_time"):
+            assert (off / name).read_bytes() == (on / name).read_bytes(), name
 
 
 @pytest.mark.parametrize("shape", [(8, 128), (1,), (1000,), (33, 257)])

@@ -210,8 +210,9 @@ def test_cli_device_cuda_raises_without_cuda(runs, tmp_path):
     assert not any(tmp_path.iterdir())  # raised before writing anything
 
 
-# --trace_dir in each of the four modes: a trace appears and parses, and
-# every output file equals the one of the same run without it, bit for bit.
+# --trace_dir in each of the four modes: a trace appears and parses, holds
+# the runner's phases, and every output file equals the one of the same run
+# without it, bit for bit.
 @pytest.mark.parametrize("flag", [["--robust", "--marginal"], ["--marginal"], ["--streaming_blocks", "64", "--robust"],
                                   []])
 def test_trace_dir_writes_a_trace_and_changes_no_output(runs, tmp_path, flag):
@@ -231,6 +232,7 @@ def test_trace_dir_writes_a_trace_and_changes_no_output(runs, tmp_path, flag):
     events = json.loads(traces[0].read_text())["traceEvents"]
     names = {e.get("name") for e in events}
     assert len(events) > 100 and ("infer.filter" in names) == (flag == [])
+    assert {"infer.call", "infer.read", "infer.tables", "infer.write"} <= names
     plain, traced = tmp_path / "plain" / "chrom_t_0", tmp_path / "traced" / "chrom_t_0"
     files = sorted(os.listdir(plain))
     assert files == sorted(os.listdir(traced)) and any(f.endswith(".npz") for f in files)
