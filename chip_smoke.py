@@ -155,8 +155,9 @@ Phases, each of which raises (exit code non-zero) when it fails:
    equal bit for bit; one trace file, its size; from the trace the CUDA
    kernels a site of the filter and of the backward pass (the
    ``infer.filter`` and ``infer.backward`` ranges), the CUDA graph replays
-   in each and their kernels a replayed site, K1's kernels equal to the
-   wrapper's count (which counts replays), the device's busy share of the
+   in each and their kernels a replayed site (at most 10 a filter site),
+   K1's and K2's kernels equal to the wrapper's count (which counts
+   replays), the device's busy share of the
    traced window and its busy time against the untraced run's filter and
    backward seconds;
 18. ``runner.infer_chromosome_meshed`` at world 1 on a fifth seeded
@@ -200,6 +201,25 @@ one block; replaces ``.round4/pallas_smoke.py:11``) through its wrapper on
 arange(1024).reshape(8, 128) and a seeded random block, equal to
 ``2 * x + x.max()`` bit for bit, then timed. Phase 2 builds every
 ``csrc/*.cu``, one nvcc a source, all started together.
+
+Phase 3c (after 3b): the filter-step kernel K2 (``csrc/filter_step.cu``)
+through its wrapper against its plain version, ``_expand_and_weigh`` +
+``_renormalise``, from the same carry (run_filter's on the card after a
+few sites) and the same K1 outputs at M = 50, R = 6: the cell's shape
+U = 2, N = 2,400 with (T, R) and with (U, T, R) emission rows, U = 32, the
+no-resample site after a cold start, a unit whose ancestors are all dead;
+children, parents, the -inf pattern and the degenerate flags equal, finite
+weights and shifts within atol 2e-5, rtol 1e-6 (the shift's f32 sum is
+taken in another order); then timed at U = 2 and U = 32: per call through
+the wrapper and of the plain version (CUDA events), and each as a graph of
+20 steps replayed behind a spin (the card's time a site step, as the
+graphed filter loop replays it), beside the shape's bandwidth bound.
+
+Every two-group phase resets both kernels' launch counts and checks that
+K2 launched once a two-group filter site: as often as K1 (every filter
+site is K1 then K2), less the theta stage's launches in the pipeline
+phase; every single-group phase checks that K2 did not launch. The kernels line gives
+K2's launches by path.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc;
@@ -251,6 +271,34 @@ def _sync(device):
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+# K2's launches by two-group run over the whole smoke, for the kernels
+# line (``launches_since_reset``).
+K2_LAUNCHES = {}
+
+
+def reset_launches():
+    """Both kernels' launch counts (K1, K2) to 0, before a run."""
+    from hygeia_tpu_torch.ops import cuda_filter_step, cuda_resampling
+
+    cuda_resampling.KERNEL.launches = cuda_filter_step.KERNEL.launches = 0
+
+
+def launches_since_reset(path=None, two_group_sites=None):
+    """K1's launches since ``reset_launches``. With ``path``, a run with a
+    two-group stage: K2 must have launched once a two-group filter site,
+    ``two_group_sites`` (default: as often as K1, for a run without a
+    single-group stage), and its count is added to K2_LAUNCHES[path].
+    Without, a single-group run: K2 must not have launched."""
+    from hygeia_tpu_torch.ops import cuda_filter_step, cuda_resampling
+
+    k1, k2 = cuda_resampling.KERNEL.launches, cuda_filter_step.KERNEL.launches
+    want = (k1 if two_group_sites is None else two_group_sites) if path else 0
+    check(k2 == want, f"{path or 'single group'}: K2 launched {k2} times, K1 {k1}, expected {want}")
+    if path:
+        K2_LAUNCHES[path] = K2_LAUNCHES.get(path, 0) + k2
+    return k1
 
 
 def card_line():
@@ -467,6 +515,138 @@ def kernel_phase(device, seed=0):
     return max_err, times
 
 
+def filter_step_phase(device, seed=0):
+    """K2 against its plain version, ``_expand_and_weigh`` + ``_renormalise``,
+    from the same carry and K1 outputs (phase 3c), then timed at U = 2 and
+    U = 32. Returns (max |err| of the finite weights and shifts, {label:
+    the shape's times})."""
+    import numpy as np
+    import torch
+    from hygeia_tpu_torch.ops import cuda_filter_step as k2
+    from hygeia_tpu_torch.ops.cuda_resampling import optimal_resampling
+    from hygeia_tpu_torch.ops.emissions import emission_log_prob_table
+    from hygeia_tpu_torch.two_group.filter import _expand_and_weigh, _renormalise, run_filter
+    from hygeia_tpu_torch.two_group.model import make_params
+
+    M, T = 50, 40
+    N = M * (2 * R + R * R)
+    params = make_params(mu=MU, sigma=SIGMA, p_softmax_control=np.zeros((R, R)),
+                         omega_logit_control=np.full(R, 4.0), omega_case=0.8, kappa_control=np.full(R, 2.0),
+                         kappa_case=np.full(R, 2.0), merge_log_prob=np.log(0.1), split_prob=0.01,
+                         minimum_duration=3, d_max=T + 1, device=device)
+    st = params.step_tables()
+    rng = np.random.default_rng(seed)
+
+    def tables(U):
+        """Per-unit (U, T, R) control and case emission rows."""
+        n = rng.poisson(20, size=(U, T, 2))
+        tab = lambda p: torch.stack([emission_log_prob_table(rng.binomial(n[u], p), n[u], params.alpha,
+                                                             params.beta) for u in range(U)])
+        return tab(0.7), tab(0.3)
+
+    def inputs(U, t, per_unit_rows):
+        """The carry after t sites of run_filter on the card, uniforms and
+        K1's outputs for site t."""
+        E_c, E_k = tables(U)
+        if not per_unit_rows:
+            E_c, E_k = E_c[0], E_k[0]
+        prev = run_filter(params, E_c[..., :t, :], E_k[..., :t, :], M, n_units=U,
+                          generator=torch.Generator(device=device).manual_seed(seed + t), return_history=False)
+        lw, parts = prev.log_weights.contiguous(), torch.stack(prev.particles, 1).contiguous()
+        g = torch.Generator(device=device).manual_seed(seed + 1)
+        u_sys, u_mult = torch.rand((U,), generator=g, device=device), torch.rand((U, M), generator=g, device=device)
+        return E_c, E_k, lw, parts, optimal_resampling(lw, M, u_sys, u_mult)
+
+    def outputs(U):
+        return (torch.empty((U, N), device=device), torch.empty((U, 5, N), dtype=torch.int32, device=device),
+                torch.zeros((U, T - 1), device=device), torch.zeros((U, T - 1), dtype=torch.bool, device=device),
+                tuple(torch.zeros((U, T, N), dtype=dt, device=device) for dt in k2.HISTORY_DTYPES),
+                torch.empty((U, M), dtype=torch.int64, device=device))
+
+    def launcher(E_c, E_k, t, lw, parts, res, outs):
+        idx = torch.tensor([t - 1, t], device=device)
+        out_lw, out_parts, shifts, degen, hist, parents = outs
+        return lambda: k2.filter_step_cuda(E_c, E_k, idx, lw, parts, res, M, st.rho_both, params.log_p_control,
+                                           params.log_p_merged, params.min_duration, out_lw, out_parts, shifts,
+                                           degen, hist, parents)
+
+    def plain_step(E_c, E_k, t, lw, parts, res):
+        new_lw, new_parts, parents = _expand_and_weigh(params, E_c[..., t, :], E_k[..., t, :], lw, parts, M, res,
+                                                       return_parents=True)
+        return (*_renormalise(new_lw), new_parts, parents)
+
+    max_err = 0.0
+    cases = {"cell": (2, 12, False), "per_unit_rows": (2, 12, True), "u32": (32, 12, False),
+             "no_resample": (2, 1, False), "all_dead": (2, 12, False)}
+    for label, (U, t, per_unit_rows) in cases.items():
+        E_c, E_k, lw, parts, res = inputs(U, t, per_unit_rows)
+        if label == "all_dead":  # unit 0: every ancestor dead, so every child
+            parts[0, 2] = -1
+        want_lw, want_shift, want_degen, want_parts, want_parents = plain_step(E_c, E_k, t, lw, parts, res)
+        outs = outputs(U)
+        before = k2.KERNEL.launches
+        launcher(E_c, E_k, t, lw, parts, res, outs)()
+        check(k2.KERNEL.launches == before + 1, f"K2 {label}: {k2.KERNEL.launches - before} launches for one call")
+        got_lw, got_parts, shifts, degen, hist, parents = outs
+        torch.cuda.synchronize(device)
+        check(torch.equal(got_parts, want_parts), f"K2 {label}: children differ from the plain version's")
+        check(torch.equal(parents, want_parents), f"K2 {label}: parents differ")
+        check(torch.equal(degen[:, t - 1], want_degen), f"K2 {label}: degenerate flags differ")
+        check(torch.equal(torch.isneginf(got_lw), torch.isneginf(want_lw))
+              and torch.equal(torch.isfinite(got_lw), torch.isfinite(want_lw)), f"K2 {label}: -inf pattern differs")
+        fin = torch.isfinite(want_lw)
+        for name, g, w in (("weights", got_lw[fin], want_lw[fin]), ("shifts", shifts[:, t - 1], want_shift)):
+            check(bool(torch.allclose(g, w, atol=2e-5, rtol=1e-6)), f"K2 {label}: {name} beyond atol 2e-5, rtol 1e-6")
+            max_err = max(max_err, float((g.double() - w.double()).abs().max()))
+        check(torch.equal(hist[0][:, t], got_lw), f"K2 {label}: history row {t} is not the new weights")
+        live = torch.isfinite(lw).sum(-1)
+        if label == "no_resample":
+            check(bool((live <= M).all()), f"K2 {label}: {live.tolist()} live weights, not <= M")
+        if label == "all_dead":
+            check(degen[:, t - 1].tolist() == [True, False], f"K2 {label}: degenerate flags {degen[:, t - 1]}")
+        else:
+            check(not bool(degen.any()), f"K2 {label}: a degenerate site")
+    print(f"K2 vs plain: the cell's shape U=2 N={N} M={M} R={R} with (T, R) and (U, T, R) rows, U=32, the "
+          f"no-resample site, an all-dead unit: children, parents, -inf pattern and flags equal, max |err| "
+          f"weights/shifts {max_err:.3g}")
+
+    def graph_ms(fn, reps=20):
+        """The card's time a call of fn: a graph of reps calls replayed
+        behind a spin, CUDA events over 10 replays, best of 3."""
+        fn()
+        torch.cuda.synchronize(device)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        return min(_events_ms(device, graph.replay, 10, True) for _ in range(3)) / reps
+
+    def timed(U):
+        """ms, plain_ms: per call through the wrapper and of the plain
+        version, CUDA events over 100 and 20 calls, best of 3. device_ms,
+        plain_device_ms: each as ``graph_ms`` gives it. bound_ms: the
+        shape's bytes (the carry, K1's outputs and the emission rows read
+        once; the carry, the history row, the parents, shift and flag
+        written once; the hazard lookups left out, < 1%) over 3.35 TB/s."""
+        E_c, E_k, lw, parts, res = inputs(U, 12, False)
+        k2_call = launcher(E_c, E_k, 12, lw, parts, res, outputs(U))
+        plain_call = lambda: plain_step(E_c, E_k, 12, lw, parts, res)
+        n_bytes = U * (24 * N + 8 * M + 5 + 8 * R) + U * (24 * N + 15 * N + 8 * M + 5) + 4 * (R * R + 4)
+        out = {
+            "ms": min(_events_ms(device, k2_call, 100, False) for _ in range(3)),
+            "plain_ms": min(_events_ms(device, plain_call, 20, False) for _ in range(3)),
+            "device_ms": graph_ms(k2_call), "plain_device_ms": graph_ms(plain_call),
+            "bytes": n_bytes, "bound_ms": 1e3 * n_bytes / 3.35e12, "bound_by": "bytes",
+        }
+        print(f"K2 at U={U} N={N} M={M}: per call through the wrapper {out['ms']:.4f} ms (plain "
+              f"{out['plain_ms']:.4f} ms; CUDA events, best of 3); on the card, replayed in a graph, "
+              f"{1e3 * out['device_ms']:.2f} us a site step (plain {1e3 * out['plain_device_ms']:.2f} us); bound "
+              f"{1e6 * out['bound_ms']:.1f} ns ({n_bytes} bytes, by {out['bound_by']})")
+        return out
+
+    return max_err, {"two_group_cell": timed(2), "two_group_u32": timed(32)}
+
+
 # ---------------------------------------------------------------- hazard ----
 
 def hazard_phase(device):
@@ -664,7 +844,6 @@ def single_group_phase(device, root, regime):
     import numpy as np
     import torch
     from hygeia_tpu_torch import cli
-    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
     from hygeia_tpu_torch.utils import io as hio
 
     sg_in = os.path.join(root, "single_group_input")
@@ -687,13 +866,13 @@ def single_group_phase(device, root, regime):
     ]
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    KERNEL.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     res = cli.main(argv)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
-    launches = KERNEL.launches
+    launches = launches_since_reset()
 
     names = {
         "regime_probs_1.csv": ["genomic_position"] + [f"regime_{i + 1}" for i in range(R)],
@@ -748,7 +927,6 @@ def slice_phase(device, root, data_dir, sg_dir, dmr, segment_size, buffer_size, 
     import numpy as np
     import torch
     from hygeia_tpu_torch import cli
-    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
 
     n_sites = segment_size + buffer_size
     dmr = dmr[:n_sites]  # batch 0's window
@@ -761,13 +939,13 @@ def slice_phase(device, root, data_dir, sg_dir, dmr, segment_size, buffer_size, 
     ]
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    KERNEL.launches = 0
+    reset_launches()
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         cli.main(argv)
     wall = time.perf_counter() - t0
-    launches = KERNEL.launches
+    launches = launches_since_reset("two_group")
     print(out.getvalue().strip())
 
     T, N, B = n_sites, 50 * (2 * R + R * R), 25
@@ -824,14 +1002,13 @@ def streamed_phase(device, root, data_dir, sg_dir, segment_size, buffer_size, mo
     the same files as phase 7 bit for bit. Returns (stats, launches)."""
     import numpy as np
     import torch
-    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
     from hygeia_tpu_torch.two_group.runner import infer_segment
     from hygeia_tpu_torch.two_group.streaming import block_bounds, launches_per_call
 
     T, N = segment_size + buffer_size, 50 * (2 * R + R * R)
     results = os.path.join(root, "results_streamed")
     torch.cuda.reset_peak_memory_stats(device)
-    KERNEL.launches = 0
+    reset_launches()
     tim = {}
     out = io.StringIO()
     t0 = time.perf_counter()
@@ -840,7 +1017,7 @@ def streamed_phase(device, root, data_dir, sg_dir, segment_size, buffer_size, mo
                               device=device, batch=0, seed=seed, segment_size=segment_size,
                               buffer_size=buffer_size, streaming_blocks=block, timings=tim)[N]
     wall = time.perf_counter() - t0
-    launches = KERNEL.launches
+    launches = launches_since_reset("streamed")
     peak = torch.cuda.max_memory_allocated(device)
     print(out.getvalue().strip())
 
@@ -880,7 +1057,6 @@ def chromosome_phase(device, root, n_sites, seed=1):
     6's theta. Returns (stats, launches)."""
     import numpy as np
     import torch
-    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
     from hygeia_tpu_torch.two_group.runner import infer_chromosome_streamed, segment_window
     from hygeia_tpu_torch.two_group.streaming import launches_per_call
 
@@ -889,7 +1065,7 @@ def chromosome_phase(device, root, n_sites, seed=1):
     seg, buf, seeds, W = (CHROM2[k] for k in ("segment_size", "buffer_size", "seeds", "block"))
     results = os.path.join(root, "results_chrom")
     torch.cuda.reset_peak_memory_stats(device)
-    KERNEL.launches = 0
+    reset_launches()
     tim = {}
     out = io.StringIO()
     t0 = time.perf_counter()
@@ -898,7 +1074,7 @@ def chromosome_phase(device, root, n_sites, seed=1):
                                           chrom="2", device=device, seed=seeds, segment_size=seg,
                                           buffer_size=buf, streaming_blocks=W, timings=tim)
     wall = time.perf_counter() - t0
-    launches = KERNEL.launches
+    launches = launches_since_reset("chromosome")
     text = out.getvalue()
 
     N, B = 50 * (2 * R + R * R), 25
@@ -974,7 +1150,6 @@ def robust_phase(device, root, data_dir, sg_dir, dmr, segment_size, buffer_size,
     import numpy as np
     import torch
     from hygeia_tpu_torch import cli
-    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
     from hygeia_tpu_torch.ops.distributions import mu_sigma_to_alpha_beta
     from hygeia_tpu_torch.ops.emissions import robust_emission_log_prob_table
     from hygeia_tpu_torch.utils import io as hio
@@ -998,12 +1173,12 @@ def robust_phase(device, root, data_dir, sg_dir, dmr, segment_size, buffer_size,
                 os.path.join(root, name), "--chrom", "1", "--segment_size", str(segment_size),
                 "--buffer_size", str(buffer_size), "--batch", "0", "--seed", str(seed),
                 "--device", str(device), *extra]
-        KERNEL.launches = 0
+        reset_launches()
         out = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
             log_z = cli.main(argv)[N]
-        return log_z, time.perf_counter() - t0, KERNEL.launches, out.getvalue()
+        return log_z, time.perf_counter() - t0, launches_since_reset(name[len("results_"):]), out.getvalue()
 
     log_z, wall, launches, text = run("results_robust", ["--robust"])
     plain_log_z, plain_wall, _, _ = run("results_robust_plain", [])
@@ -1033,7 +1208,6 @@ def blocked_phase(device, root, regime, block_size, halo, warmup_sites, seed=0):
     call)."""
     import numpy as np
     import torch
-    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
     from hygeia_tpu_torch.ops.emissions import emission_log_prob_table
     from hygeia_tpu_torch.single_group.blocked import run_online_combined_inference_blocked
     from hygeia_tpu_torch.single_group.engine import EngineConfig, run_online_combined_inference
@@ -1049,13 +1223,13 @@ def blocked_phase(device, root, regime, block_size, halo, warmup_sites, seed=0):
     theta0 = torch.randn((model.dim_theta,), generator=torch.Generator().manual_seed(seed), dtype=torch.float64)
     cfg = EngineConfig(n_particles_max=SG_N, estimate_regimes=True, estimate_parameters=True)
     tim = {}
-    KERNEL.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     res = run_online_combined_inference_blocked(
         model, theta0.numpy(), E, cfg, block_size=block_size, halo=halo, warmup_sites=warmup_sites,
         generator=torch.Generator(device=device).manual_seed(seed), timings=tim)
     wall = time.perf_counter() - t0
-    launches = KERNEL.launches
+    launches = launches_since_reset()
     n_blocks, win, Tw = -(-T // block_size), block_size + halo, min(T, warmup_sites)
     check(n_blocks >= 2 and T >= win, f"blocked: {T} sites make {n_blocks} blocks of {block_size}")
     want = (Tw - 1) + (win - 1)
@@ -1118,7 +1292,6 @@ def pipeline_phase(device, root, n_sites, batch_size=6000, buffer_size=600, seed
     (stats, launches of the first run)."""
     import numpy as np
     from hygeia_tpu_torch import cli
-    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
     from hygeia_tpu_torch.two_group.runner import segment_window
     from hygeia_tpu_torch.utils import io as hio
 
@@ -1131,18 +1304,18 @@ def pipeline_phase(device, root, n_sites, batch_size=6000, buffer_size=600, seed
     for flag, paths, prefix in (("control", controls, "c"), ("case", cases, "k")):
         for i, p in enumerate(paths):
             argv += [f"--{flag}_data_path", p, f"--{flag}_id_names", f"{prefix}{i}"]
-    KERNEL.launches = 0
+    reset_launches()
     text = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(text):
         cli.main(argv)
     wall = time.perf_counter() - t0
-    launches = KERNEL.launches
-
     N, B = 50 * (2 * R + R * R), 25
     n_batches = 1 + n_sites // batch_size
     windows = [len(segment_window(n_sites, b, batch_size, buffer_size)[0]) for b in range(n_batches)]
     check(all(w > 0 for w in windows), f"pipeline: an empty batch in {windows}")
+    # K2 runs in INFER only, not in the theta stage.
+    launches = launches_since_reset("pipeline", two_group_sites=sum(w - 1 for w in windows))
     want = (n_sites - 1) + sum(w - 1 for w in windows)
     check(launches == want, f"pipeline: kernel launched {launches} times, (T - 1) + sum(window - 1) = {want}")
     names = [f"1_PREPROCESS/3/{n}_3.txt.gz" for n in ("positions", "cpg_sites_merged", "n_methylated_reads_control",
@@ -1182,16 +1355,17 @@ def pipeline_phase(device, root, n_sites, batch_size=6000, buffer_size=600, seed
     check(precision >= 0.5, f"pipeline: {precision:.3f} of the called DMPs lie in planted windows")
 
     t1 = time.perf_counter()
-    KERNEL.launches = 0
+    reset_launches()
     with contextlib.redirect_stdout(io.StringIO()):
         cli.main(argv)
     wall2 = time.perf_counter() - t1
+    resume_launches = launches_since_reset("pipeline_resume")
     # Its restore fetches the files of directories without a marker (the
     # INFER outputs; their markers are in the unit_* directories), as the
     # JAX package's mirror does: a BUCKET_RESTORE row, then only skips.
     rows2 = [r.split("\t") for r in open(os.path.join(out, "trace.tsv")).read().splitlines()[1:]]
-    check(KERNEL.launches == 0 and all(r[3] == "True" for r in rows2 if r[0] != "BUCKET_RESTORE"),
-          f"pipeline: the resumed run ran stages again ({KERNEL.launches} launches, {rows2})")
+    check(resume_launches == 0 and all(r[3] == "True" for r in rows2 if r[0] != "BUCKET_RESTORE"),
+          f"pipeline: the resumed run ran stages again ({resume_launches} launches, {rows2})")
     check(wall2 < 0.1 * wall, f"pipeline: the resumed run took {wall2:.2f} s of the first's {wall:.2f} s")
 
     # A fresh machine: the output tree deleted, the run restored from the
@@ -1202,12 +1376,12 @@ def pipeline_phase(device, root, n_sites, batch_size=6000, buffer_size=600, seed
         with open(os.path.join(dmp_dir, name), "rb") as f:
             dmps[name] = f.read()
     shutil.rmtree(out)
-    KERNEL.launches = 0
+    reset_launches()
     t1 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         cli.main(argv)
     wall3 = time.perf_counter() - t1
-    bucket_launches = KERNEL.launches
+    bucket_launches = launches_since_reset("pipeline_bucket_resume")
     rows3 = [r.split("\t") for r in open(os.path.join(out, "trace.tsv")).read().splitlines()[1:]]
     check(bucket_launches == 0 and rows3[0][0] == "BUCKET_RESTORE" and all(r[3] == "True" for r in rows3[1:]),
           f"pipeline: the run restored from the bucket ran stages again ({bucket_launches} launches, {rows3})")
@@ -1241,7 +1415,6 @@ def sg_pipeline_phase(device, root, n_sites):
 
     import numpy as np
     from hygeia_tpu_torch import cli
-    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
     from hygeia_tpu_torch.utils import io as hio
     from hygeia_tpu_torch.utils.tabix import TabixFile
 
@@ -1255,12 +1428,12 @@ def sg_pipeline_phase(device, root, n_sites):
     out = os.path.join(root, "sg_pipeline")
     argv = ["run", "--output_dir", out, "--chroms", "4", "--cpg_file_path", cpg, "--sample_sheet", sheet,
             "--device", str(device)]
-    KERNEL.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         cli.main(argv)
     wall = time.perf_counter() - t0
-    launches = KERNEL.launches
+    launches = launches_since_reset()
 
     T = n_sites
     check(launches == 2 * (T - 1), f"single-group pipeline: kernel launched {launches} times, 2 (T - 1) = "
@@ -1305,13 +1478,14 @@ def sg_pipeline_phase(device, root, n_sites):
                   f"single-group pipeline: make_bed_file differs from the stage's .bed.gz{ext}")
 
     t1 = time.perf_counter()
-    KERNEL.launches = 0
+    reset_launches()
     with contextlib.redirect_stdout(io.StringIO()):
         cli.main(argv)
     wall2 = time.perf_counter() - t1
+    resume_launches = launches_since_reset()
     rows2 = [r.split("\t") for r in open(os.path.join(out, "trace.tsv")).read().splitlines()[1:]]
-    check(KERNEL.launches == 0 and rows2 and all(r[3] == "True" for r in rows2),
-          f"single-group pipeline: the resumed run ran stages again ({KERNEL.launches} launches, {rows2})")
+    check(resume_launches == 0 and rows2 and all(r[3] == "True" for r in rows2),
+          f"single-group pipeline: the resumed run ran stages again ({resume_launches} launches, {rows2})")
 
     # The same samples' counts as gemBS tab files (chr-prefixed contigs).
     gembs_dir = os.path.join(root, "gembs")
@@ -1356,7 +1530,7 @@ def sg_pipeline_phase(device, root, n_sites):
     # too, so the recovery above is printed, not held.
     from hygeia_tpu_torch.pipeline.orchestrator import run_single_group
 
-    KERNEL.launches = 0
+    reset_launches()
     t3 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         out2 = run_single_group(output_dir=os.path.join(root, "sg_pipeline_learn"), chroms=["4"], device=device,
@@ -1364,7 +1538,7 @@ def sg_pipeline_phase(device, root, n_sites):
                                 mu=MU, sigma=SIGMA, u=3, n_steps_without_parameter_update=50,
                                 learning_rate_factor=0.2)
     learn_s = time.perf_counter() - t3
-    launches2 = KERNEL.launches
+    launches2 = launches_since_reset()
     check(launches2 == 2 * (T - 1), f"single-group pipeline (samples=): kernel launched {launches2} times, "
                                     f"2 (T - 1) = {2 * (T - 1)}")
     learned = {}
@@ -1417,13 +1591,12 @@ def marginal_phase(device, root, data_dir, sg_dir, dmr, segment_size, buffer_siz
     launches)."""
     import numpy as np
     import torch
-    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
     from hygeia_tpu_torch.two_group.runner import infer_segment
 
     T, N = segment_size + buffer_size, 50 * (2 * R + R * R)
     results = os.path.join(root, "results_marginal")
     torch.cuda.reset_peak_memory_stats(device)
-    KERNEL.launches = 0
+    reset_launches()
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
@@ -1431,7 +1604,7 @@ def marginal_phase(device, root, data_dir, sg_dir, dmr, segment_size, buffer_siz
                               device=device, batch=0, seed=list(seeds), segment_size=segment_size,
                               buffer_size=buffer_size, marginal=True, marginal_window=window)
     wall = time.perf_counter() - t0
-    launches = KERNEL.launches
+    launches = launches_since_reset("marginal")
     peak = torch.cuda.max_memory_allocated(device)
     text = out.getvalue()
     print(text.strip())
@@ -1561,18 +1734,17 @@ def simulate_two_groups_phase(device, root, seed=0):
     launches)."""
     import numpy as np
     from hygeia_tpu_torch import cli
-    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
 
     out_dir = os.path.join(root, "simulate_two_groups")
     T, N, B = 2000, 50 * (2 * R + R * R), 25
-    KERNEL.launches = 0
+    reset_launches()
     text = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(text):
         res = cli.main(["simulate_two_groups", "--results_dir", out_dir, "--run_inference", "--seed", str(seed),
                         "--device", str(device)])
     wall = time.perf_counter() - t0
-    launches = KERNEL.launches
+    launches = launches_since_reset("simulate_two_groups")
     print(text.getvalue().strip())
     check(launches == T - 1, f"simulate_two_groups: kernel launched {launches} times for T={T}")
     check(math.isfinite(res["log_z"]) and res["degenerate_steps"] == 0,
@@ -1625,7 +1797,6 @@ def simulate_data_phase(device, root, n_sites, replicates=8, seed=0):
     launches of the replicates)."""
     import numpy as np
     from hygeia_tpu_torch import cli
-    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
     from hygeia_tpu_torch.single_group.runner import approximate_log_normalizing_constant
     from hygeia_tpu_torch.utils import io as hio
 
@@ -1643,14 +1814,14 @@ def simulate_data_phase(device, root, n_sites, replicates=8, seed=0):
           f"simulate_data: shapes {regime.shape} {total.shape} {meth.shape}")
     check(bool(np.all((meth >= 0) & (meth <= total))), "simulate_data: counts outside [0, depth]")
 
-    KERNEL.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     res = cli.main(["estimate_parameters_and_regimes", "--n_methylated_reads_csv_file", f["meth"],
                     "--n_total_reads_csv_file", f["total"], "--genomic_positions_csv_file", f["pos"],
                     "--estimate_regime_probabilities", "--regime_probabilities_csv_file", f["probs"],
                     "--progress_every", "0", "--device", str(device)])
     est_s = time.perf_counter() - t0
-    est_launches = KERNEL.launches
+    est_launches = launches_since_reset()
     check(est_launches == n_sites - 1, f"simulate_data: the regime pass launched {est_launches} times")
     _cols, probs = hio.read_headed_table(f["probs"])
     recovery = float(np.mean(probs[:, 1:].argmax(1) == regime))
@@ -1658,12 +1829,12 @@ def simulate_data_phase(device, root, n_sites, replicates=8, seed=0):
     check(recovery > SIMULATE_DATA_RECOVERY_BOUND,
           f"simulate_data: regime recovery {recovery:.3f}, bound {SIMULATE_DATA_RECOVERY_BOUND}")
 
-    KERNEL.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     log_z = approximate_log_normalizing_constant(n_replicates=replicates, n_methylated_reads=meth.T,
                                                  n_total_reads=total.T, device=device, rng_seed=seed)
     rep_s = time.perf_counter() - t0
-    rep_launches = KERNEL.launches
+    rep_launches = launches_since_reset()
     check(rep_launches == n_sites - 1, f"replicates: launched {rep_launches} times for {replicates} replicates")
     check(log_z.shape == (replicates,) and bool(np.all(np.isfinite(log_z))), f"replicates: logZ {log_z}")
     stats = {"sites": n_sites, "simulate_s": sim_s, "regime_pass_s": est_s, "recovery": recovery,
@@ -1719,6 +1890,7 @@ def _trace_shares(path):
             end = e
     return {"events": len(events), "kernels": len(kernels),
             "k1_kernels": sum("optimal_resampling" in k["name"] for k in kernels),
+            "k2_kernels": sum("filter_step" in k["name"] for k in kernels),
             "kernels_in_range": in_range, "graph_launches_in_range": graph_launches,
             "graph_kernels_in_range": graph_kernels, "ranges_us": {k: v[1] - v[0] for k, v in ranges.items()},
             "window_us": hi - lo, "busy_us": busy, "busy_share": busy / (hi - lo) if hi > lo else 0.0}
@@ -1735,7 +1907,6 @@ def trace_phase(device, root, data_dir, sg_dir, segment_size, buffer_size, seed=
     Returns (stats, launches of the traced run)."""
     import numpy as np
     from hygeia_tpu_torch import cli
-    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
 
     T = segment_size + buffer_size
     trace_dir = os.path.join(root, "trace")
@@ -1743,13 +1914,14 @@ def trace_phase(device, root, data_dir, sg_dir, segment_size, buffer_size, seed=
     launches = walls = None
     for label, extra in (("traced", ["--trace_dir", trace_dir]), ("plain", [])):
         results = os.path.join(root, f"results_{label}")
-        KERNEL.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
             cli.main(["infer", "--data_dir", data_dir, "--single_group_dir", sg_dir, "--results_dir", results,
                       "--chrom", "1", "--segment_size", str(segment_size), "--buffer_size", str(buffer_size),
                       "--batch", "0", "--seed", str(seed), "--device", str(device), *extra])
-        outs[label] = (os.path.join(results, "chrom_1_0"), time.perf_counter() - t0, KERNEL.launches)
+        outs[label] = (os.path.join(results, "chrom_1_0"), time.perf_counter() - t0,
+                       launches_since_reset("trace" if label == "traced" else "trace_untraced"))
     (a_dir, wall_traced, launches), (b_dir, wall_plain, plain_launches) = outs["traced"], outs["plain"]
     check(launches == plain_launches == T - 1, f"trace: launches {launches} traced, {plain_launches} plain")
     names = sorted(n for n in os.listdir(a_dir) if n.endswith(".npz") or n.startswith("log_normalizing"))
@@ -1774,6 +1946,7 @@ def trace_phase(device, root, data_dir, sg_dir, segment_size, buffer_size, seed=
     check(sh["k1_kernels"] == launches,
           f"trace: {sh['k1_kernels']} K1 kernels in the trace, the wrapper counted {launches} (CUPTI records "
           "what the ctypes launch of the kernel puts on the stream only if it sees the launch)")
+    check(sh["k2_kernels"] == launches, f"trace: {sh['k2_kernels']} K2 kernels in the trace, K1's {launches}")
     per_site = {k: v / T for k, v in sh["kernels_in_range"].items()}
     # Each loop steps its first site eagerly and replays the other T - 2.
     check(set(sh["graph_launches_in_range"]) == {"infer.filter", "infer.backward"}
@@ -1781,6 +1954,9 @@ def trace_phase(device, root, data_dir, sg_dir, segment_size, buffer_size, seed=
           f"trace: CUDA graph launches in the loops {sh['graph_launches_in_range']}")
     replays_per_site = {k: v / (T - 2) for k, v in sh["graph_launches_in_range"].items()}
     graph_kernels_per_site = {k: v / (T - 2) for k, v in sh["graph_kernels_in_range"].items()}
+    # A filter site is two draws, K1, K2 and the index's advance.
+    check(graph_kernels_per_site["infer.filter"] <= 10,
+          f"trace: {graph_kernels_per_site['infer.filter']:.2f} kernels a replayed filter site, more than 10")
     # The profiler slows the host several times over, so the traced window's
     # busy share understates the untraced run's: set the device time the
     # trace holds against the untraced run's filter and backward seconds.
@@ -1895,7 +2071,6 @@ def meshed_phase(device, root, n_sites, segment_size, buffer_size, seed=7):
     at this T and at RHO_D_MAX. Returns (stats, {boundary: launches})."""
     import numpy as np
     import torch
-    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
     from hygeia_tpu_torch.parallel.sharded import MESSAGES, expected_launches
     from hygeia_tpu_torch.two_group.runner import _make_params, infer_chromosome_meshed
     from hygeia_tpu_torch.utils import io as hio
@@ -1910,7 +2085,7 @@ def meshed_phase(device, root, n_sites, segment_size, buffer_size, seed=7):
         results = os.path.join(root, f"results_mesh_{boundary}")
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
-        KERNEL.launches = 0
+        reset_launches()
         tim = {}
         out = io.StringIO()
         t0 = time.perf_counter()
@@ -1919,7 +2094,7 @@ def meshed_phase(device, root, n_sites, segment_size, buffer_size, seed=7):
                                     mesh_shape=MESH_SHAPE, device=device, boundary=boundary, seed=MESH_SEEDS,
                                     segment_size=segment_size, buffer_size=buffer_size, timings=tim)
         wall = time.perf_counter() - t0
-        launches[boundary] = KERNEL.launches
+        launches[boundary] = launches_since_reset(f"meshed_{boundary}")
         t = tim[N]
         units = (n_blocks if boundary == "halo" else MESH_SHAPE[0]) * len(MESH_SEEDS)
         check(t["chunks"] == [units], f"meshed {boundary}: chunks {t['chunks']}, expected all {units} units in one")
@@ -2073,7 +2248,6 @@ def graph_phase(device, root, data_dir, sg_dir, segment_size, buffer_size, strea
     (``_engine_classes``); then ``_chain_pairs``. Returns stats."""
     import numpy as np
     import torch
-    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
     from hygeia_tpu_torch.ops.site_graphs import SITES_PER_GRAPH
     from hygeia_tpu_torch.single_group.runner import estimate_parameters_and_regimes
     from hygeia_tpu_torch.two_group.runner import infer_chromosome_meshed, infer_segment
@@ -2135,7 +2309,7 @@ def graph_phase(device, root, data_dir, sg_dir, segment_size, buffer_size, strea
             out = os.path.join(root, f"graph_{name}_{label}")
             if device.type == "cuda":
                 torch.cuda.reset_peak_memory_stats(device)
-            KERNEL.launches = 0
+            reset_launches()
             _sync(device)
             text = io.StringIO()
             t0 = time.perf_counter()
@@ -2144,7 +2318,8 @@ def graph_phase(device, root, data_dir, sg_dir, segment_size, buffer_size, strea
                 res = run(out, K)
             _sync(device)
             wall = time.perf_counter() - t0
-            got[label] = {"out": out, "res": res, "wall_s": wall, "launches": KERNEL.launches,
+            launches = launches_since_reset(None if name == "engine" else f"graphs_{name}_{label}")
+            got[label] = {"out": out, "res": res, "wall_s": wall, "launches": launches,
                           "text": text.getvalue(), "classes": rec and _engine_classes(rec),
                           "peak": torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None}
         g, e = got["graphed"], got["eager"]
@@ -2275,6 +2450,7 @@ def _world2_rank(rank, rendezvous, kw, out_dir, N, device_str):
     gloo on the one card, both schemes through infer_chromosome_meshed;
     writes its launches, messages and chunks to out_dir/rank{rank}.json."""
     import torch
+    from hygeia_tpu_torch.ops import cuda_filter_step
     from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
     from hygeia_tpu_torch.parallel.launcher import initialize_distributed
     from hygeia_tpu_torch.parallel.sharded import MESSAGES
@@ -2286,14 +2462,15 @@ def _world2_rank(rank, rendezvous, kw, out_dir, N, device_str):
     check(initialize_distributed(f"file://{rendezvous}", 2, rank, backend="gloo") == (rank, 2), "world 2: join")
     rec = {}
     for boundary in ("halo", "exchange"):
-        KERNEL.launches = 0
+        reset_launches()
         tim = {}
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
             infer_chromosome_meshed(**kw, boundary=boundary, results_dir=os.path.join(out_dir, boundary),
                                     device=device, timings=tim)
         t = tim[N]
-        rec[boundary] = {"launches": KERNEL.launches, "messages": MESSAGES.rounds, "calls": MESSAGES.calls,
+        rec[boundary] = {"launches": KERNEL.launches, "k2_launches": cuda_filter_step.KERNEL.launches,
+                         "messages": MESSAGES.rounds, "calls": MESSAGES.calls,
                          "chunks": t["chunks"], "wall_s": time.perf_counter() - t0,
                          **{k: t[k] for k in ("filter_s", "backward_s", "messages_s")}}
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -2312,7 +2489,6 @@ def world2_phase(device, root, n_sites, segment_size, buffer_size, seed=8):
     both ranks)."""
     import numpy as np
     import torch.multiprocessing as mp
-    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
     from hygeia_tpu_torch.parallel.sharded import MESSAGES, expected_launches
     from hygeia_tpu_torch.two_group.runner import infer_chromosome_meshed
 
@@ -2326,13 +2502,14 @@ def world2_phase(device, root, n_sites, segment_size, buffer_size, seed=8):
     per_rank = {"halo": n_blocks * len(MESH_SEEDS) // 2, "exchange": MESH_SHAPE[0] * len(MESH_SEEDS) // 2}
     ref = {}
     for boundary in ("halo", "exchange"):
-        KERNEL.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
             infer_chromosome_meshed(**kw, boundary=boundary, results_dir=os.path.join(root, "world1", boundary),
                                     device=device, max_units_per_call=per_rank[boundary])
         check(MESSAGES.calls == 0, "world 1 made torch.distributed calls")
-        ref[boundary] = {"messages": MESSAGES.rounds, "launches": KERNEL.launches, "wall_s": time.perf_counter() - t0}
+        ref[boundary] = {"messages": MESSAGES.rounds, "launches": launches_since_reset(f"world1_{boundary}"),
+                         "wall_s": time.perf_counter() - t0}
     out_dir = os.path.join(root, "world2")
     os.makedirs(out_dir)
     t0 = time.perf_counter()
@@ -2350,6 +2527,9 @@ def world2_phase(device, root, n_sites, segment_size, buffer_size, seed=8):
             got = rec[boundary]
             check(got["chunks"] == [per_rank[boundary]], f"world 2 {boundary}: rank {r} chunks {got['chunks']}")
             check(got["launches"] == want, f"world 2 {boundary}: rank {r} launched {got['launches']}, formula {want}")
+            check(got["k2_launches"] == got["launches"],
+                  f"world 2 {boundary}: rank {r}'s K2 launched {got['k2_launches']} times, K1 {got['launches']}")
+            K2_LAUNCHES["meshed_world2"] = K2_LAUNCHES.get("meshed_world2", 0) + got["k2_launches"]
             launches += got["launches"]
         got = ranks[0][boundary]
         check(got["messages"] == ref[boundary]["messages"] == got["calls"],
@@ -2390,7 +2570,6 @@ def mesh_run_phase(device, root, ctx, n_sites, batch_size, buffer_size, seeds=2)
     positions in planted windows. Returns (stats, launches)."""
     import numpy as np
     from hygeia_tpu_torch import cli
-    from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
     from hygeia_tpu_torch.parallel.sharded import expected_launches
 
     out = os.path.join(root, "pipeline_mesh")
@@ -2402,12 +2581,12 @@ def mesh_run_phase(device, root, ctx, n_sites, batch_size, buffer_size, seeds=2)
     for flag, paths, prefix in (("control", ctx["controls"], "c"), ("case", ctx["cases"], "k")):
         for i, p in enumerate(paths):
             argv += [f"--{flag}_data_path", p, f"--{flag}_id_names", f"{prefix}{i}"]
-    KERNEL.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         cli.main(argv)
     wall = time.perf_counter() - t0
-    launches = KERNEL.launches
+    launches = launches_since_reset("mesh_run")
     n_blocks = -(-max(1, -(-n_sites // batch_size)) // MESH_SHAPE[0]) * MESH_SHAPE[0]
     want = expected_launches("exchange", batch_size, buffer_size, n_blocks // MESH_SHAPE[0], 1)
     check(launches == want, f"mesh run: K1 launched {launches} times, the formula gives {want}")
@@ -2514,7 +2693,7 @@ def main(argv=None):
     card = card_line()
     print(card)
 
-    from hygeia_tpu_torch.ops import build
+    from hygeia_tpu_torch.ops import build, cuda_filter_step
     from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
     from hygeia_tpu_torch.ops.probe import PROBE
 
@@ -2522,6 +2701,7 @@ def main(argv=None):
     builds = build.build_all()  # one nvcc a source, all started together
     KERNEL.load()
     PROBE.load()
+    cuda_filter_step.KERNEL.load()
     print(f"build: {[s.name for s in build.sources()]} in {time.perf_counter() - t0:.2f} s, one nvcc each in "
           f"parallel: " + ", ".join(f"{k} {v.seconds:.2f} s" for k, v in builds.items()))
     for name, info in builds.items():
@@ -2531,6 +2711,7 @@ def main(argv=None):
 
     max_err, times = kernel_phase(device)
     pr_stats, pr_launches = probe_phase(device)
+    k2_err, k2_times = filter_step_phase(device)
     onsets = hazard_phase(device)
     offpath = offpath_phase(device)
 
@@ -2649,6 +2830,22 @@ def main(argv=None):
         "device_ms": pr_stats["device_ms"],
         "bytes": pr_stats["bytes"],
         "shape": "(8, 128) f32, one block",
+    }, {
+        "name": "filter_step",
+        "route": "cuda",
+        "source": "hygeia_tpu_torch/csrc/filter_step.cu",
+        # No TPU kernel: the JAX package composes the step from XLA ops.
+        "replaces": "hygeia_tpu/two_group/filter.py:386",
+        # Every two-group run's K2 launches, each checked equal to K1's.
+        "launches": sum(K2_LAUNCHES.values()),
+        "launches_by_path": K2_LAUNCHES,
+        "max_abs_err": k2_err,
+        "shape": "U=2 N=2400 M=50 R=6 (the benchmark cell's)",
+        **{k: k2_times["two_group_cell"][k] for k in ("ms", "plain_ms", "device_ms", "plain_device_ms", "bytes",
+                                                       "bound_ms", "bound_by")},
+        "library_ms": None,
+        "library": "no single PyTorch call computes it",
+        "by_shape": k2_times,
     }], "card": card, "hazard_onsets": onsets, "single_group": sg_stats, "slice": stats,
         "streamed": st_stats, "chromosome": ch_stats, "robust": rb_stats, "blocked": bl_stats,
         "pipeline": pl_stats, "single_group_pipeline": sgp_stats, "marginal": mg_stats, "offpath": offpath,

@@ -64,12 +64,19 @@ def supports(n, m):
     return None
 
 
+# Every kernel counted through replays (K1 here, K2 in
+# ops/cuda_filter_step.py), in the order made: ops/site_graphs.py adds
+# each one's captured launches to its count at every replay.
+KERNELS = []
+
+
 class _Kernel:
     """The loaded library and the launch count. ``launches`` goes up by one
     per kernel launch, eager or replayed: the wrapper counts an eager
     launch, and a CUDA graph's replay adds the launches its capture
     recorded (ops/site_graphs.py). ``captured`` counts the launches that
-    captures recorded, which run only when replayed."""
+    captures recorded, which run only when replayed. Each one made joins
+    KERNELS."""
 
     def __init__(self):
         self.lib = None
@@ -77,6 +84,7 @@ class _Kernel:
         self.launch = None  # the C entry, argtypes set
         self.launches = 0
         self.captured = 0
+        KERNELS.append(self)
 
     def load(self):
         if self.lib is None:

@@ -27,9 +27,10 @@ replay a one-site graph of the same step. Every graph of a loop shares one
 memory pool; the loop's graphs are freed when it ends. A failed capture
 or replay raises; nothing falls back to the eager route.
 
-K1's launch count counts executions: its wrapper counts the launches a
-capture records apart (``KERNEL.captured``), and each replay adds its
-graph's count to ``KERNEL.launches``.
+The kernels' launch counts count executions: each kernel's wrapper
+(``cuda_resampling.KERNELS``: K1, K2) counts the launches a capture
+records apart (``KERNEL.captured``), and each replay adds its graph's
+counts to their ``KERNEL.launches``.
 
 Spans (utils/spans.py): each ``run`` is a ``site_loop.run`` span (kind,
 sites), with a ``site_loop.warm`` span for a kind's eager first site and a
@@ -49,7 +50,7 @@ import ctypes
 
 import torch
 
-from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
+from hygeia_tpu_torch.ops.cuda_resampling import KERNELS
 from hygeia_tpu_torch.utils import spans
 
 # Sites a graph: JAX's filter unroll (hygeia_tpu/two_group/filter.py).
@@ -116,7 +117,7 @@ class SiteLoop:
         self.graphed = self.device.type == "cuda" and self.K > 0
         gens = generator if isinstance(generator, (list, tuple)) else [generator]
         self.generators = [g for g in gens if g is not None]
-        self.graphs = {}  # (kind, sites) -> (graph, K1 launches a replay)
+        self.graphs = {}  # (kind, sites) -> (graph, {kernel: its launches a replay})
         self.nodes = {}  # (kind, sites) -> the graph's nodes, if captured while recording
         self.warm = set()
         self._pool = self._stream = self._ctx = None
@@ -161,7 +162,8 @@ class SiteLoop:
                     graph, launches = self._graph(step, kind, sites)
                     for _ in range(reps):
                         graph.replay()
-                        KERNEL.launches += launches
+                        for kernel, k in launches.items():
+                            kernel.launches += k
                     nodes = self.nodes.get((kind, sites))
                     if nodes is not None and spans.recording():
                         spans.count("site_loop.sites_replayed", sites * reps)
@@ -178,12 +180,12 @@ class SiteLoop:
                     graph.register_generator_state(g)
                 if self._pool is None:
                     self._pool = torch.cuda.graph_pool_handle()
-                before = KERNEL.captured
+                before = {kernel: kernel.captured for kernel in KERNELS}
                 with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
                     for _ in range(sites):
                         step()
                     if spans.recording():
                         self.nodes[key] = captured_nodes(self._stream)
                         spans.annotate(nodes=self.nodes[key])
-                self.graphs[key] = (graph, KERNEL.captured - before)
+                self.graphs[key] = (graph, {k: k.captured - before.get(k, 0) for k in KERNELS})
         return self.graphs[key]

@@ -19,9 +19,13 @@ place. On a CUDA device the step runs as a replayed CUDA graph of K sites
   -min(0, log_c + log W_ancestor) correction. The JAX filter's
   unbiased-resampling switch is not ported: its INFER path always takes the
   optimal resampler, whose own fallback is multinomial.
-* warm start: site 0 scored by _one_step from the previous genome block's
-  final (weights, particles) and renormalised like every later site, so a
-  warm block continues the filter exactly (two_group/streaming.py).
+* filter_site: one site of every filter loop (run_filter's, the warm
+  step's, the marginal filter's): _one_step + _renormalise and the carry's
+  and history's writes on the CPU; on the card the resampler K1 and then
+  K2 (ops/cuda_filter_step), which does the rest in one launch.
+* warm start: site 0 scored by filter_site from the previous genome
+  block's final (weights, particles) like every later site, so a warm
+  block continues the filter exactly (two_group/streaming.py).
 
 The emission tables are (T, R), shared by the units, or (U, T, R), one
 segment per unit.
@@ -34,6 +38,7 @@ from typing import NamedTuple
 
 import torch
 
+from hygeia_tpu_torch.ops.cuda_filter_step import filter_step_cuda
 from hygeia_tpu_torch.ops.cuda_resampling import optimal_resampling
 from hygeia_tpu_torch.ops.site_graphs import SITES_PER_GRAPH, SiteLoop
 from hygeia_tpu_torch.two_group.model import (
@@ -107,12 +112,19 @@ def _one_step(
     Dead ancestors (weight -inf) may be picked as top-M padding parents;
     their children inherit -inf weights.
     """
+    res = optimal_resampling(prev_lw.to(torch.float32), M, u_sys, u_mult)  # f32, as in JAX
+    return _expand_and_weigh(params, row_c, row_k, prev_lw, prev_particles, M, res, return_parents)
+
+
+def _expand_and_weigh(params, row_c, row_k, prev_lw, prev_particles, M, res, return_parents=False):
+    """_one_step after the resampler, given its ResampleResult ``res`` for
+    prev_lw: the plain version of the CUDA filter step K2
+    (ops/cuda_filter_step.py) up to the renormalisation."""
     dtype = prev_lw.dtype
     U = prev_lw.shape[0]
     # Normalised-weight contract: the caller renormalises every step, so
     # logsumexp(prev_lw) == 0 and log_z_prev is taken as exactly 0.
     need_resample = torch.isfinite(prev_lw).sum(dim=-1) > M  # (U,)
-    res = optimal_resampling(prev_lw.to(torch.float32), M, u_sys, u_mult)  # f32, as in JAX
     # No-resample branch: keep the top-M slots (the resampler's own top-M).
     parents = torch.where(need_resample[:, None], res.parent_indices, res.top_m_indices)
     log_c = torch.where(need_resample, res.log_c.to(dtype), 0.0)
@@ -203,17 +215,66 @@ def _phantom_regimes(generator, U, R, device, phantom_regime=None, only=None):
     ])
 
 
+def filter_site(params, emission_control, emission_case, idx, lw, parts, M, u_sys, u_mult, shifts, degen,
+                hist=None, out=None, return_parents=False):
+    """One filter site for U units, the step of every filter loop: t is read
+    from the device index ``idx`` = (column, t) (int64, (2,)), the weights
+    lw (U, N) and particles parts (U, 5, N) int32 are the renormalised
+    carry, u_sys (U,) and u_mult (U, M) the site's uniforms. Resamples,
+    expands, scores, updates and renormalises; writes the new weights and
+    particles into ``out`` = (weights, particles) (default: lw and parts, in
+    place), the shift and degenerate flag into column idx[0] of shifts
+    (U, C) and degen (U, C), and row t of the history ``hist`` (the weights
+    and five fields, (U, T, N) each) when given. Returns the (U, M) int64
+    parents with return_parents=True, else None.
+
+    CPU tensors take the plain version, ``_one_step`` + ``_renormalise``;
+    a CUDA tensor takes the resampler K1 and then K2
+    (ops/cuda_filter_step.py), with f32 weights and tables, or the call
+    raises. The emission tables are (T, R), shared by the units, or
+    (U, T, R)."""
+    out_lw, out_parts = (lw, parts) if out is None else out
+    if lw.device.type != "cpu":
+        res = optimal_resampling(lw, M, u_sys, u_mult)
+        parents = None
+        if return_parents:
+            parents = torch.empty(res.parent_indices.shape, dtype=torch.int64, device=lw.device)
+        st = params.step_tables()
+        filter_step_cuda(emission_control, emission_case, idx, lw, parts, res, M, st.rho_both,
+                         params.log_p_control, params.log_p_merged, params.min_duration, out_lw,
+                         out_parts, shifts, degen, hist, parents)
+        return parents
+    col, t = idx[:1], idx[1:]
+    row_c = emission_control.index_select(-2, t).squeeze(-2)
+    row_k = emission_case.index_select(-2, t).squeeze(-2)
+    new_lw, new_parts, *parents = _one_step(params, row_c, row_k, lw, parts, M, u_sys, u_mult,
+                                            return_parents=return_parents)
+    new_lw, shift, degenerate = _renormalise(new_lw)
+    shifts.index_copy_(1, col, shift[:, None])
+    degen.index_copy_(1, col, degenerate[:, None])
+    if hist is not None:
+        hist[0].index_copy_(1, t, new_lw[:, None])
+        for h, f in zip(hist[1:], new_parts.unbind(1)):
+            h.index_copy_(1, t, f[:, None].to(h.dtype))
+    out_lw.copy_(new_lw)
+    out_parts.copy_(new_parts)
+    return parents[0] if return_parents else None
+
+
 def warm_step(params, emission_control, emission_case, init_lw, init_particles, M, u_sys, u_mult):
-    """Site 0 of a warm-started block: _one_step from the previous block's
-    final renormalised weights init_lw (U, N) and particles (U, 5, N) int32,
-    then _renormalise, as every site of the monolithic filter. Returns
-    (lw, particles, shift, degenerate)."""
-    lw, parts = _one_step(
-        params, emission_control[..., 0, :], emission_case[..., 0, :],
-        init_lw, init_particles, M, u_sys, u_mult,
-    )
-    lw, shift, degenerate = _renormalise(lw)
-    return lw, parts, shift, degenerate
+    """Site 0 of a warm-started block: ``filter_site`` at t = 0 from the
+    previous block's final renormalised weights init_lw (U, N) and
+    particles (U, 5, N) int32, as every site of the monolithic filter.
+    Returns (lw, particles, shift, degenerate)."""
+    U, dev = init_lw.shape[0], init_lw.device
+    lw, parts = init_lw.contiguous(), init_particles.contiguous()
+    out = (torch.empty_like(lw), torch.empty_like(parts))
+    shift = torch.empty((U, 1), dtype=lw.dtype, device=dev)
+    degenerate = torch.empty((U, 1), dtype=torch.bool, device=dev)
+    idx = torch.zeros((2,), dtype=torch.int64, device=dev)
+    filter_site(params, emission_control, emission_case, idx, lw, parts, M, u_sys, u_mult, shift,
+                degenerate, out=out)
+    return out[0], out[1], shift[:, 0], degenerate[:, 0]
 
 
 def run_filter(
@@ -340,19 +401,8 @@ def _site_step(params, emission_control, emission_case, M, generator, U, idx, lw
     read from the device index ``idx`` = (t - 1, t), which the step then
     advances; the carry ``lw`` (U, N) and ``parts`` (U, 5, N), the
     shifts' and degenerate flags' column t - 1 and the history's row t are
-    written in place."""
-    t_prev, t = idx[:1], idx[1:]
+    written in place (``filter_site``)."""
     u_sys, u_mult = _draw_uniforms(generator, U, M, lw.device)
-    row_c = emission_control.index_select(-2, t).squeeze(-2)
-    row_k = emission_case.index_select(-2, t).squeeze(-2)
-    new_lw, new_parts = _one_step(params, row_c, row_k, lw, parts, M, u_sys, u_mult)
-    new_lw, shift, degenerate = _renormalise(new_lw)
-    shifts.index_copy_(1, t_prev, shift[:, None])
-    degen.index_copy_(1, t_prev, degenerate[:, None])
-    if hist is not None:
-        hist[0].index_copy_(1, t, new_lw[:, None])
-        for h, f in zip(hist[1:], new_parts.unbind(1)):
-            h.index_copy_(1, t, f[:, None].to(h.dtype))
-    lw.copy_(new_lw)
-    parts.copy_(new_parts)
+    filter_site(params, emission_control, emission_case, idx, lw, parts, M, u_sys, u_mult, shifts, degen,
+                hist)
     idx.add_(1)

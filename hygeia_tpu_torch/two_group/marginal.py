@@ -25,8 +25,9 @@ and at most one rank-R regime factor, so the update is one
 (S*F + 1, C) x (C, 3M + 2MR + R*R) matrix product per unit (``torch.matmul``;
 the JAX package computes it outside any Pallas kernel too).
 
-The resampler is K1 (ops/cuda_resampling) through the filter's
-``_one_step``: one launch a site for every unit of the call. The site
+The site step is the filter's ``filter_site``: on the card the resampler
+K1 (ops/cuda_resampling) and the filter step K2 (ops/cuda_filter_step),
+one launch each a site for every unit of the call. The site
 loop is a step that reads its site from a device index and writes its
 carry in place, so on a CUDA device it replays as CUDA graphs
 (ops/site_graphs.py, the counterpart of the JAX module's ``lax.scan``).
@@ -40,7 +41,7 @@ import torch
 
 from hygeia_tpu_torch.ops.site_graphs import SITES_PER_GRAPH, SiteLoop
 from hygeia_tpu_torch.two_group.backward import _structured_rho
-from hygeia_tpu_torch.two_group.filter import _draw_uniforms, _first_step, _one_step, _renormalise, _phantom_regimes
+from hygeia_tpu_torch.two_group.filter import _draw_uniforms, _first_step, _phantom_regimes, filter_site
 from hygeia_tpu_torch.two_group.model import State, TwoGroupParams
 from hygeia_tpu_torch.two_group.proposal import num_children
 
@@ -332,13 +333,9 @@ def _marginal_step(params, emission_control, emission_case, M, generator, unifor
     else:
         u_sys = uniforms[0].index_select(1, t_prev)[:, 0]
         u_mult = uniforms[1].index_select(1, t_prev)[:, 0]
-    row_c = emission_control.index_select(-2, t).squeeze(-2)
-    row_k = emission_case.index_select(-2, t).squeeze(-2)
-    new_lw, new_parts, parents = _one_step(params, row_c, row_k, c.lw, c.parts, M, u_sys, u_mult,
-                                           return_parents=True)
-    new_lw, shift, degenerate = _renormalise(new_lw)
-    c.shifts.index_copy_(1, t_prev, shift[:, None])
-    c.degen.index_copy_(1, t_prev, degenerate[:, None])
+    new_lw, new_parts = torch.empty_like(c.lw), torch.empty_like(c.parts)
+    parents = filter_site(params, emission_control, emission_case, c.idx, c.lw, c.parts, M, u_sys, u_mult,
+                          c.shifts, c.degen, out=(new_lw, new_parts), return_parents=True)
     w_self = _compact_sum(torch.where(torch.isfinite(new_lw), torch.exp(new_lw), 0.0).to(f32), R, M)
     new_cols = State(*(_compact_rep(f, R, M) for f in new_parts.unbind(1)))
 

@@ -1,6 +1,7 @@
-"""The port on the card: the optimal-resampler kernel against its plain
-PyTorch version on the same tensors and uniforms, the single-group hazard
-tables against the CPU's, and the paths that go through the kernel.
+"""The port on the card: the optimal-resampler kernel K1 and the
+filter-step kernel K2 against their plain PyTorch versions on the same
+tensors and uniforms, the single-group hazard tables against the CPU's,
+and the paths that go through the kernels.
 
 Marked ``cuda``; skipped where there is no CUDA device. On the machine with
 the GPU (no JAX there, so without the repo's conftest):
@@ -16,7 +17,11 @@ mean absolute, modes equal on 90% of the sites both call confident. The
 marginal filter on the card against the CPU with the same uniforms: the
 functionals within 0.02, logZ within rtol 1e-4 (the kernel's log_c is
 rtol 1e-5 of the plain version's, and the psi product sums in another
-order).
+order). The filter-step kernel K2 against its plain version from the
+same K1 outputs: children, parents, the -inf pattern and the degenerate
+flags equal; finite weights and shifts within atol 2e-5, rtol 1e-6 (its
+terms are the plain version's bit for bit; the shift's sum of
+exponentials is taken in another order).
 """
 
 import numpy as np
@@ -24,6 +29,7 @@ import pytest
 import torch
 
 from hygeia_tpu_torch.ops import resampling as plain
+from hygeia_tpu_torch.ops import cuda_filter_step as k2
 from hygeia_tpu_torch.ops import cuda_resampling as cr
 
 pytestmark = pytest.mark.cuda
@@ -193,11 +199,197 @@ def test_filter_on_the_card_goes_through_the_kernel(device):
     n = rng.poisson(20, size=(T, 2))
     y = rng.binomial(n, 0.7)
     E = emission_log_prob_table(y, n, params.alpha, params.beta)
-    before = cr.KERNEL.launches
+    before, before_k2 = cr.KERNEL.launches, k2.KERNEL.launches
     res = run_filter(params, E, E, M, n_units=3, generator=torch.Generator(device=device).manual_seed(0))
     assert cr.KERNEL.launches - before == T - 1
+    assert k2.KERNEL.launches - before_k2 == T - 1
     assert bool(torch.isfinite(res.log_normalizing_constant).all())
     assert int(res.degenerate_steps.sum()) == 0
+
+
+# ---- K2, the filter step after the resampler (ops/cuda_filter_step.py) ------
+
+def _k2_params(device, R, T):
+    from hygeia_tpu_torch.two_group.model import make_params
+
+    return make_params(
+        mu=[0.95, 0.05, 0.80, 0.20, 0.50, 0.50][:R], sigma=[0.05, 0.05, 0.1, 0.1, 0.1, 0.2886751][:R],
+        p_softmax_control=np.zeros((R, R)), omega_logit_control=np.full(R, 4.0), omega_case=0.8,
+        kappa_control=np.full(R, 2.0), kappa_case=np.full(R, 2.0), merge_log_prob=np.log(0.1),
+        split_prob=0.01, minimum_duration=3, d_max=T + 1, device=device,
+    )
+
+
+def _k2_inputs(device, case):
+    """(params, E_c, E_k, t, lw, parts, K1's result) of one filter site at
+    M = 50: the carry after ``t`` sites of run_filter on the card, altered
+    as ``case`` asks."""
+    from hygeia_tpu_torch.two_group.filter import run_filter
+
+    R = 5 if case == "r5" else 6
+    U = 32 if case == "u32" else 2
+    M, T = 50, 40
+    t = 1 if case == "no_resample" else 12  # 1: the site after a cold start (R^2 = 36 live)
+    params = _k2_params(device, R, T)
+    E_c, E_k = _graph_tables(params, T, U, seed=3)
+    if case != "per_unit_rows":
+        E_c, E_k = E_c[0], E_k[0]
+    prev = run_filter(params, E_c[..., :t, :], E_k[..., :t, :], M, n_units=U,
+                      generator=torch.Generator(device=device).manual_seed(21), return_history=False)
+    lw, parts = prev.log_weights.contiguous(), torch.stack(prev.particles, 1).contiguous()
+    rng = np.random.default_rng(4)
+    if case == "dead_ancestors":  # a third of the live particles dead, their weights finite
+        parts[:, 2][torch.from_numpy(rng.uniform(size=tuple(lw.shape)) < 0.33).to(device)] = -1
+    if case == "all_dead":  # unit 0: every ancestor dead, so every child
+        parts[0, 2] = -1
+    g = torch.Generator(device=device).manual_seed(9)
+    u_sys, u_mult = torch.rand((U,), generator=g, device=device), torch.rand((U, M), generator=g, device=device)
+    res = cr.optimal_resampling(lw, M, u_sys, u_mult)
+    if case == "unbiased":  # K1's fallback flag on unit 1
+        res = res._replace(use_unbiased=torch.tensor([False, True], device=device))
+    return params, E_c, E_k, t, lw, parts, M, res
+
+
+def _k2_launch(params, E_c, E_k, t, lw, parts, M, res, out=None):
+    """K2 at site t into ``out`` (default: new tensors), with a fresh
+    history, shifts, flags and parents: (out_lw, out_parts, shifts, degen,
+    hist, parents)."""
+    U, N = lw.shape
+    T, dev = E_c.shape[-2], lw.device
+    out_lw, out_parts = out if out is not None else (torch.empty_like(lw), torch.empty_like(parts))
+    shifts = torch.zeros((U, T - 1), device=dev)
+    degen = torch.zeros((U, T - 1), dtype=torch.bool, device=dev)
+    hist = tuple(torch.zeros((U, T, N), dtype=dt, device=dev) for dt in k2.HISTORY_DTYPES)
+    parents = torch.empty((U, M), dtype=torch.int64, device=dev)
+    st = params.step_tables()
+    k2.filter_step_cuda(E_c, E_k, torch.tensor([t - 1, t], device=dev), lw, parts, res, M, st.rho_both,
+                        params.log_p_control, params.log_p_merged, params.min_duration, out_lw, out_parts,
+                        shifts, degen, hist, parents)
+    return out_lw, out_parts, shifts, degen, hist, parents
+
+
+@pytest.mark.parametrize("case", ["cell", "r5", "u32", "per_unit_rows", "dead_ancestors", "no_resample",
+                                  "unbiased", "all_dead"])
+def test_k2_matches_the_plain_composition(device, case):
+    """K2 against _expand_and_weigh + _renormalise on the card, from the
+    same weights, particles, K1 outputs and emission rows. Children,
+    parents, the -inf pattern and the degenerate flags are equal; the
+    finite weights and the shifts agree within atol 2e-5, rtol 1e-6: every
+    term before the renormalisation is the plain version's bit for bit,
+    and the shift is a sum of f32 exponentials taken in another order
+    (~1e-6), which every weight inherits besides its own rounding. The
+    history row is the carry's copy; a launch into the carry itself (in
+    place) gives the same bits as one into new tensors; one launch a call."""
+    from hygeia_tpu_torch.two_group.filter import _expand_and_weigh, _renormalise
+
+    params, E_c, E_k, t, lw, parts, M, res = _k2_inputs(device, case)
+    want_lw, want_parts, parents = _expand_and_weigh(params, E_c[..., t, :], E_k[..., t, :], lw, parts, M, res,
+                                                     return_parents=True)
+    want_lw, want_shift, want_degen = _renormalise(want_lw)
+    before = k2.KERNEL.launches
+    got_lw, got_parts, shifts, degen, hist, got_parents = _k2_launch(params, E_c, E_k, t, lw, parts, M, res)
+    assert k2.KERNEL.launches == before + 1
+    assert torch.equal(got_parts, want_parts)
+    assert torch.equal(got_parents, parents)
+    assert torch.equal(degen[:, t - 1], want_degen)
+    assert torch.equal(torch.isneginf(got_lw), torch.isneginf(want_lw))
+    assert torch.equal(torch.isfinite(got_lw), torch.isfinite(want_lw))
+    fin = torch.isfinite(want_lw)
+    torch.testing.assert_close(got_lw[fin], want_lw[fin], atol=2e-5, rtol=1e-6)
+    torch.testing.assert_close(shifts[:, t - 1], want_shift, atol=2e-5, rtol=1e-6)
+    others = [c for c in range(shifts.shape[1]) if c != t - 1]
+    assert not shifts[:, others].any() and not degen[:, others].any()
+    assert torch.equal(hist[0][:, t], got_lw)
+    for h, f in zip(hist[1:], got_parts.unbind(1)):
+        assert torch.equal(h[:, t], f.to(h.dtype))
+    rows = [s for s in range(hist[0].shape[1]) if s != t]
+    assert all(not h[:, rows].any() for h in hist)
+    again = _k2_launch(params, E_c, E_k, t, lw.clone(), parts.clone(), M, res, out=None)
+    carry = (lw.clone(), parts.clone())
+    in_place = _k2_launch(params, E_c, E_k, t, *carry, M, res, out=carry)
+    for a, b, c in zip(again[:4], in_place[:4], (got_lw, got_parts, shifts, degen)):
+        assert torch.equal(a, c) and torch.equal(b, c)
+
+    live = torch.isfinite(lw).sum(-1)
+    if case == "no_resample":
+        assert bool((live <= M).all()) and bool(torch.isneginf(lw.gather(1, parents)).any())
+    elif case == "dead_ancestors":
+        anc_dead = parts[:, 2].gather(1, parents) < 0
+        assert bool((live > M).all()) and bool(anc_dead.any())
+    elif case == "unbiased":
+        assert bool((live > M).all())
+    elif case == "all_dead":
+        assert degen[:, t - 1].tolist() == [True, False]
+        assert torch.equal(got_lw[0], torch.full_like(got_lw[0], -float(np.log(lw.shape[1]))))
+    else:
+        assert not degen.any()
+
+
+def test_k2_refuses_what_it_cannot_take(device):
+    """f64 weights (through the filter's site step too), a tensor that is
+    not contiguous, an N that is not M * (2R + R^2), a unit beyond shared
+    memory: each raises before a launch, and nothing falls back."""
+    from hygeia_tpu_torch.two_group.filter import run_filter
+
+    params, E_c, E_k, t, lw, parts, M, res = _k2_inputs(device, "cell")
+    before = k2.KERNEL.launches
+    with pytest.raises(TypeError, match="prev_lw has dtype"):
+        _k2_launch(params, E_c, E_k, t, lw.double(), parts, M, res)
+    with pytest.raises(ValueError, match="contiguous"):
+        _k2_launch(params, E_c, E_k, t, lw, parts.transpose(1, 2).contiguous().transpose(1, 2), M, res)
+    with pytest.raises(ValueError, match="N = M"):
+        _k2_launch(params, E_c, E_k, t, lw[:, :-1].contiguous(), parts[..., :-1].contiguous(), M, res)
+    big = 1200 * (2 * 6 + 36)
+    with pytest.raises(ValueError, match="shared memory"):
+        _k2_launch(params, E_c, E_k, t, torch.zeros((1, big), device=device),
+                   torch.zeros((1, 5, big), dtype=torch.int32, device=device), 1200, res)
+    with pytest.raises(TypeError):
+        run_filter(params, E_c, E_k, M, n_units=2, generator=torch.Generator(device=device).manual_seed(0),
+                   weight_dtype=torch.float64)
+    assert k2.KERNEL.launches == before
+
+
+@pytest.mark.parametrize("path", ["warm", "marginal", "streamed", "meshed", "simulator"])
+def test_every_two_group_filter_path_on_the_card_launches_k2_with_k1(device, path, tmp_path):
+    """Every filter site of a two-group path is K1 then K2 (filter_site): a
+    warm-started run_filter, the marginal filter, streamed INFER, meshed
+    INFER (per-unit generators and emission rows) and the simulator's
+    self-test each launch K2 exactly as often as K1, at M = 50."""
+    from hygeia_tpu_torch import cli
+    from hygeia_tpu_torch.parallel import make_mesh, sharded_two_group_inference
+    from hygeia_tpu_torch.two_group.filter import run_filter
+    from hygeia_tpu_torch.two_group.marginal import run_marginal_filter
+    from hygeia_tpu_torch.two_group.streaming import streamed_inference
+
+    T, M, U = 120, 50, 2
+    params = _k2_params(device, 6, T)
+    E_c, E_k = _graph_tables(params, T, U, seed=5)
+    gen = lambda s: torch.Generator(device=device).manual_seed(s)
+    k1, k2_before = cr.KERNEL.launches, k2.KERNEL.launches
+    if path == "warm":
+        prev = run_filter(params, E_c, E_k, M, n_units=U, generator=gen(1), return_history=False)
+        k1, k2_before = cr.KERNEL.launches, k2.KERNEL.launches
+        run_filter(params, E_c, E_k, M, n_units=U, generator=gen(2),
+                   init_state=(prev.log_weights, torch.stack(prev.particles, 1)))
+        assert k2.KERNEL.launches - k2_before == T
+    elif path == "marginal":
+        run_marginal_filter(params, E_c[0], E_k[0], M, n_units=U, generator=gen(3))
+        assert k2.KERNEL.launches - k2_before == T - 1
+    elif path == "streamed":
+        streamed_inference(params, E_c, E_k, M, 25, n_units=U, generator=gen(4), backward_generator=gen(5),
+                           block_size=48)
+    elif path == "meshed":
+        rng = np.random.default_rng(3)
+        n = rng.poisson(20, size=(200, 2)).astype(np.float32)
+        y = np.minimum(rng.poisson(10, size=(200, 2)), n).astype(np.float32)
+        sharded_two_group_inference(make_mesh(4, 2, device=device), _k2_params(device, 6, 200), y, n, y, n,
+                                    segment_size=50, buffer_size=10, num_resampled_ancestors=M,
+                                    num_samples_backward=25, seeds=[0, 1], boundary="exchange")
+    else:
+        out = cli.main(["simulate_two_groups", "--results_dir", str(tmp_path / "sim"), "--seed", "0", "--device",
+                        "cuda", "--n_observations", str(T), "--run_inference"])
+        assert out["N"] == M * 48 and k2.KERNEL.launches - k2_before == T - 1
+    assert k2.KERNEL.launches - k2_before == cr.KERNEL.launches - k1 > 0
 
 
 @pytest.mark.parametrize("kappa_fixed", [True, False])
@@ -588,10 +780,16 @@ def test_infer_call_on_the_card_captures_four_graphs(recorded_card_call):
 
 
 def test_infer_call_on_the_card_counts_nodes_a_replayed_site(recorded_card_call):
-    *_, counters = recorded_card_call
+    *_, got, counters = recorded_card_call
     # Each loop runs T - 1 = 119 sites, the first eagerly.
     assert counters["site_loop.sites_replayed"] == 2 * 118
-    assert 100 <= counters["site_loop.nodes_replayed"] / counters["site_loop.sites_replayed"] <= 400
+    # A filter site is two draws, K1, K2 and the index's add (5 nodes), a
+    # backward site ~120 nodes: ~63 a site over both loops.
+    assert 40 <= counters["site_loop.nodes_replayed"] / counters["site_loop.sites_replayed"] <= 100
+    by_id = {s.id: s for s in got}
+    filt = [s for s in got if s.name == "site_loop.capture"
+            and by_id[by_id[s.parent].parent].name == "infer.filter"]
+    assert filt and all(s.attrs["nodes"] <= 10 * s.attrs["sites"] for s in filt)
 
 
 def test_infer_call_on_the_card_writes_the_same_files_with_the_recorder_on(recorded_card_call):
