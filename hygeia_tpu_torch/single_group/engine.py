@@ -25,6 +25,12 @@ as a replayed graph of one site, and sites past the first t_limit under
 graphs of their own; the growth phase, the sites where entries finalise,
 the last site, and every site on the CPU run eagerly.
 
+Spans (utils/spans.py): each run of eager sites is an ``engine.eager``
+span, and the counters ``engine.sites.eager``, ``.steady`` and ``.update``
+add up the sites of each class of ``_Engine.kind`` (T - 1 in all); the
+graphed runs record ``site_loop.run`` spans. No span opens inside a site
+step.
+
 Layout of the N particle slots at step t (as in JAX): continuations
 [0, m_t), the R fresh change-point particles [m_t, m_t + R), dead slots
 after. The one-hot matmul lookups of the TPU version are gathers here.
@@ -58,6 +64,7 @@ import torch
 from hygeia_tpu_torch.ops.cuda_resampling import optimal_resampling
 from hygeia_tpu_torch.ops.site_graphs import SITES_PER_GRAPH, SiteLoop
 from hygeia_tpu_torch.single_group.model import SingleGroupModel, build_tables
+from hygeia_tpu_torch.utils import spans
 
 _NEG_INF = float("-inf")
 _ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
@@ -563,17 +570,23 @@ def _check_uniforms(T, U, M, u_sys, u_mult, generator, device):
 
 def _run_sites(eng, loop, start, stop, draws):
     """Sites start..stop-1: each maximal run of sites of one graph ``kind``
-    through ``loop`` (replays on the card), the others eagerly."""
+    through ``loop`` (replays on the card), each run of the others eagerly
+    (an ``engine.eager`` span). Counts the sites by class of ``kind``:
+    ``engine.sites.eager``, ``.steady`` and ``.update``."""
     t = start
     while t < stop:
         kind = eng.kind(t)
         end = t + 1
+        while end < stop and eng.kind(end) == kind:
+            end += 1
         if kind is None:
-            eng.step(t, *draws())
+            with spans.span("engine.eager", sync=eng.device, sites=end - t):
+                for s in range(t, end):
+                    eng.step(s, *draws())
+            spans.count("engine.sites.eager", end - t)
         else:
-            while end < stop and eng.kind(end) == kind:
-                end += 1
             loop.run(lambda t=t: eng.step(t, *draws()), end - t, kind)
+            spans.count("engine.sites.update" if kind.endswith("update") else "engine.sites.steady", end - t)
         t = end
     eng.state["next_t"] = stop
 

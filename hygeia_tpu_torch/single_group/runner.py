@@ -6,6 +6,12 @@ Counterpart of hygeia_tpu/single_group/runner.py (``default_p``,
 ``approximate_log_normalizing_constant``): the same flags, input files,
 output files, headers and column names, driving the port's engine and
 simulator on one device.
+
+``estimate_parameters_and_regimes``'s phases are spans (utils/spans.py):
+``theta.call`` (the root) over ``theta.read``, ``theta.tables`` (the model
+and the emission table), ``theta.engine`` (the online engine) and
+``theta.write``; the tables and the engine wait for the device at their
+ends while the recorder is on.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from hygeia_tpu_torch.single_group.engine import EngineConfig, run_online_combin
 from hygeia_tpu_torch.single_group import simulate as sg_simulate
 from hygeia_tpu_torch.single_group.model import make_model, parameters_to_theta, theta_to_parameters
 from hygeia_tpu_torch.utils import io as hio
+from hygeia_tpu_torch.utils import spans
 
 DEFAULT_MU = (0.99, 0.01, 0.80, 0.20, 0.50, 0.50)
 DEFAULT_SIGMA = (0.05, 0.05, 0.20, 0.20, 0.20, 0.2886751)
@@ -81,58 +88,63 @@ def estimate_parameters_and_regimes(
     mu = np.asarray(mu, np.float64)
     R = len(mu)
     kappa = np.asarray(kappa, np.float64)
-    model = make_model(mu, sigma, u, kappa, kappa_fixed=is_kappa_fixed, d_max=4096,
-                       dtype=weight_dtype, device=device)
+    with spans.span("theta.call", units=1):
+        with spans.span("theta.read"):
+            positions = hio.read_headed_column(genomic_positions_csv_file).astype(np.int64)
+            # Headed matrices come back (n_samples, n_sites); the engine takes (T, S).
+            n_total = hio.read_headed_matrix(n_total_reads_csv_file).T
+            n_meth = hio.read_headed_matrix(n_methylated_reads_csv_file).T
+        T = n_total.shape[0]
+        spans.annotate(sites=T)
 
-    positions = hio.read_headed_column(genomic_positions_csv_file).astype(np.int64)
-    # Headed matrices come back (n_samples, n_sites); the engine takes (T, S).
-    n_total = hio.read_headed_matrix(n_total_reads_csv_file).T
-    n_meth = hio.read_headed_matrix(n_methylated_reads_csv_file).T
-    T = n_total.shape[0]
+        with spans.span("theta.tables", sync=device):
+            model = make_model(mu, sigma, u, kappa, kappa_fixed=is_kappa_fixed, d_max=4096,
+                               dtype=weight_dtype, device=device)
+            E = emission_log_prob_table(n_meth, n_total, model.alpha, model.beta, dtype=weight_dtype)
+        if estimate_parameters:
+            gen = torch.Generator().manual_seed(int(rng_seed))
+            theta_init = torch.randn((model.dim_theta,), generator=gen, dtype=torch.float64).numpy()
+        else:
+            p_mat = default_p(R) if p is None else np.asarray(p, np.float64)
+            theta_init = parameters_to_theta(p_mat, np.asarray(omega), kappa, kappa_fixed=is_kappa_fixed)
 
-    if estimate_parameters:
-        gen = torch.Generator().manual_seed(int(rng_seed))
-        theta_init = torch.randn((model.dim_theta,), generator=gen, dtype=torch.float64).numpy()
-    else:
-        p_mat = default_p(R) if p is None else np.asarray(p, np.float64)
-        theta_init = parameters_to_theta(p_mat, np.asarray(omega), kappa, kappa_fixed=is_kappa_fixed)
-
-    E = emission_log_prob_table(n_meth, n_total, model.alpha, model.beta, dtype=weight_dtype)
-    cfg = EngineConfig(
-        n_particles_max=n_particles,
-        epsilon=epsilon,
-        smoothing_window=smoothing_window,
-        estimate_regimes=estimate_regime_probabilities,
-        estimate_parameters=estimate_parameters,
-        steps_per_update=n_steps_without_parameter_update,
-        learning_rate_exponent=learning_rate_exponent,
-        learning_rate_factor=learning_rate_factor,
-        use_adam=use_adam,
-        normalise_gradients=normalise_gradients,
-        progress_every=progress_every,
-    )
-    res = run_online_combined_inference(
-        model, theta_init, E, cfg, n_units=1,
-        generator=torch.Generator(device=device).manual_seed(int(rng_seed)),
-        weight_dtype=weight_dtype, sites_per_graph=sites_per_graph,
-    )
-
-    if estimate_regime_probabilities and regime_probabilities_csv_file:
-        hio.write_headed_table(
-            regime_probabilities_csv_file, res.regime_probs[0].cpu().numpy(),
-            [f"regime_{i + 1}" for i in range(R)], first=("genomic_position", positions[:T]),
+        cfg = EngineConfig(
+            n_particles_max=n_particles,
+            epsilon=epsilon,
+            smoothing_window=smoothing_window,
+            estimate_regimes=estimate_regime_probabilities,
+            estimate_parameters=estimate_parameters,
+            steps_per_update=n_steps_without_parameter_update,
+            learning_rate_exponent=learning_rate_exponent,
+            learning_rate_factor=learning_rate_factor,
+            use_adam=use_adam,
+            normalise_gradients=normalise_gradients,
+            progress_every=progress_every,
         )
-    if estimate_parameters:
-        trace = res.theta_trace[0].cpu().numpy()
-        if theta_trace_csv_file:
-            hio.write_headed_table(
-                theta_trace_csv_file, trace, [f"theta_{i + 1}" for i in range(trace.shape[1])]
+        with spans.span("theta.engine", sync=device):
+            res = run_online_combined_inference(
+                model, theta_init, E, cfg, n_units=1,
+                generator=torch.Generator(device=device).manual_seed(int(rng_seed)),
+                weight_dtype=weight_dtype, sites_per_graph=sites_per_graph,
             )
-        final = theta_to_parameters(trace[-1], R, kappa_fixed=is_kappa_fixed)
-        hio.write_headed_table(p_csv_file, final["p"], [f"regime_{i + 1}" for i in range(R)])
-        hio.write_headed_column(omega_csv_file, final["omega"], "omega")
-        hio.write_headed_column(kappa_csv_file, final.get("kappa", kappa), "kappa")
-        hio.write_theta(theta_file, trace[-1])
+
+        with spans.span("theta.write"):
+            if estimate_regime_probabilities and regime_probabilities_csv_file:
+                hio.write_headed_table(
+                    regime_probabilities_csv_file, res.regime_probs[0].cpu().numpy(),
+                    [f"regime_{i + 1}" for i in range(R)], first=("genomic_position", positions[:T]),
+                )
+            if estimate_parameters:
+                trace = res.theta_trace[0].cpu().numpy()
+                if theta_trace_csv_file:
+                    hio.write_headed_table(
+                        theta_trace_csv_file, trace, [f"theta_{i + 1}" for i in range(trace.shape[1])]
+                    )
+                final = theta_to_parameters(trace[-1], R, kappa_fixed=is_kappa_fixed)
+                hio.write_headed_table(p_csv_file, final["p"], [f"regime_{i + 1}" for i in range(R)])
+                hio.write_headed_column(omega_csv_file, final["omega"], "omega")
+                hio.write_headed_column(kappa_csv_file, final.get("kappa", kappa), "kappa")
+                hio.write_theta(theta_file, trace[-1])
     return res
 
 
