@@ -215,11 +215,26 @@ the wrapper and of the plain version (CUDA events), and each as a graph of
 20 steps replayed behind a spin (the card's time a site step, as the
 graphed filter loop replays it), beside the shape's bandwidth bound.
 
-Every two-group phase resets both kernels' launch counts and checks that
+Phase 3d (after 3c): the backward-step kernel K3 (``csrc/backward_step.cu``)
+through its wrapper against its plain version, ``_backward_logits`` with
+the structured hazards + the Gumbel transform + argmax, over 255 sites of
+a filter history on the card at M = 50, B = 25, R = 6, U = 2 and U = 32,
+from the same carry and the same uniforms, the carry then following K3's
+draws: the drawn states equal (a row that differed would have to be a
+float32 tie of the plain version's largest noisy logits; the count is
+reported), the trajectory row the new carry, the index counted down, one
+launch a site; then timed at U = 2 and U = 32 as K2 is, beside the shape's
+bandwidth bound, with the plain version's time (the draws, common to
+both, left out).
+
+Every two-group phase resets the kernels' launch counts and checks that
 K2 launched once a two-group filter site: as often as K1 (every filter
 site is K1 then K2), less the theta stage's launches in the pipeline
-phase; every single-group phase checks that K2 did not launch. The kernels line gives
-K2's launches by path.
+phase; and that K3 launched once a backward site, counted from the calls
+of the backward pass (T - 1 a call, and one more for a conditioned
+terminal draw: ``count_backward_sites``). Every single-group phase checks
+that neither launched. The kernels line gives K2's and K3's launches by
+path.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc;
@@ -273,31 +288,62 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-# K2's launches by two-group run over the whole smoke, for the kernels
-# line (``launches_since_reset``).
+# K2's and K3's launches by two-group run over the whole smoke, for the
+# kernels line (``launches_since_reset``).
 K2_LAUNCHES = {}
+K3_LAUNCHES = {}
+# The backward sites drawn since ``reset_launches`` (``count_backward_sites``).
+BACKWARD_SITES = [0]
+
+
+def count_backward_sites():
+    """Wrap backward_simulation_conditioned wherever a path takes it from
+    (backward_simulation calls it too), so that each call adds its
+    backward sites, T - 1 and one more for a conditioned terminal draw, to
+    BACKWARD_SITES: K3 must launch once for each."""
+    from hygeia_tpu_torch.parallel import sharded
+    from hygeia_tpu_torch.two_group import backward, streaming
+
+    orig = backward.backward_simulation_conditioned
+    if getattr(orig, "counts_sites", False):
+        return
+
+    def counted(params, log_weights, particles, terminal_state, use_terminal, **kw):
+        BACKWARD_SITES[0] += log_weights.shape[1] - 1 + (use_terminal is not False)
+        return orig(params, log_weights, particles, terminal_state, use_terminal, **kw)
+
+    counted.counts_sites = True
+    for mod in (backward, streaming, sharded):
+        mod.backward_simulation_conditioned = counted
 
 
 def reset_launches():
-    """Both kernels' launch counts (K1, K2) to 0, before a run."""
-    from hygeia_tpu_torch.ops import cuda_filter_step, cuda_resampling
+    """The kernels' launch counts (K1, K2, K3) and the backward sites to 0,
+    before a run."""
+    from hygeia_tpu_torch.ops import cuda_backward_step, cuda_filter_step, cuda_resampling
 
-    cuda_resampling.KERNEL.launches = cuda_filter_step.KERNEL.launches = 0
+    cuda_resampling.KERNEL.launches = cuda_filter_step.KERNEL.launches = cuda_backward_step.KERNEL.launches = 0
+    BACKWARD_SITES[0] = 0
 
 
 def launches_since_reset(path=None, two_group_sites=None):
     """K1's launches since ``reset_launches``. With ``path``, a run with a
     two-group stage: K2 must have launched once a two-group filter site,
     ``two_group_sites`` (default: as often as K1, for a run without a
-    single-group stage), and its count is added to K2_LAUNCHES[path].
-    Without, a single-group run: K2 must not have launched."""
-    from hygeia_tpu_torch.ops import cuda_filter_step, cuda_resampling
+    single-group stage), K3 once a backward site, and their counts are
+    added to K2_LAUNCHES[path] and K3_LAUNCHES[path]. Without, a
+    single-group run: neither may have launched."""
+    from hygeia_tpu_torch.ops import cuda_backward_step, cuda_filter_step, cuda_resampling
 
     k1, k2 = cuda_resampling.KERNEL.launches, cuda_filter_step.KERNEL.launches
+    k3, sites = cuda_backward_step.KERNEL.launches, BACKWARD_SITES[0]
     want = (k1 if two_group_sites is None else two_group_sites) if path else 0
     check(k2 == want, f"{path or 'single group'}: K2 launched {k2} times, K1 {k1}, expected {want}")
+    check(k3 == sites and (path or sites == 0),
+          f"{path or 'single group'}: K3 launched {k3} times for {sites} backward sites")
     if path:
         K2_LAUNCHES[path] = K2_LAUNCHES.get(path, 0) + k2
+        K3_LAUNCHES[path] = K3_LAUNCHES.get(path, 0) + k3
     return k1
 
 
@@ -645,6 +691,144 @@ def filter_step_phase(device, seed=0):
         return out
 
     return max_err, {"two_group_cell": timed(2), "two_group_u32": timed(32)}
+
+
+def backward_step_phase(device, seed=0):
+    """K3 against its plain version, ``_backward_logits(history_layout=True)``
+    + the Gumbel transform + argmax, site after site of a filter history
+    from the same carry and uniforms (phase 3d), then timed at U = 2 and
+    U = 32. Returns ({label: rows, rows drawn differently}, {label: the
+    shape's times})."""
+    import numpy as np
+    import torch
+    from hygeia_tpu_torch.ops import cuda_backward_step as k3
+    from hygeia_tpu_torch.ops.emissions import emission_log_prob_table
+    from hygeia_tpu_torch.two_group import backward as bw
+    from hygeia_tpu_torch.two_group.filter import run_filter
+    from hygeia_tpu_torch.two_group.model import State, make_params
+
+    M, B, T = 50, 25, 256
+    N = M * (2 * R + R * R)
+    params = make_params(mu=MU, sigma=SIGMA, p_softmax_control=np.zeros((R, R)),
+                         omega_logit_control=np.full(R, 4.0), omega_case=0.8, kappa_control=np.full(R, 2.0),
+                         kappa_case=np.full(R, 2.0), merge_log_prob=np.log(0.1), split_prob=0.01,
+                         minimum_duration=3, d_max=T + 1, device=device)
+    st = params.step_tables()
+    rng = np.random.default_rng(seed)
+
+    def history(U):
+        """run_filter's history on the card over per-unit tables, the
+        uniforms' generator and a terminal carry drawn from the last
+        weights."""
+        n = rng.poisson(20, size=(U, T, 2))
+        tab = lambda p: torch.stack([emission_log_prob_table(rng.binomial(n[u], p), n[u], params.alpha,
+                                                             params.beta) for u in range(U)])
+        res = run_filter(params, tab(0.7), tab(0.3), M, n_units=U,
+                         generator=torch.Generator(device=device).manual_seed(seed + U))
+        g = torch.Generator(device=device).manual_seed(seed + 1)
+        lw, parts = res.log_weights, res.particles
+        noise = bw._noise(torch.rand((U, B, N), generator=g, device=device))
+        sel = bw._categorical_rows(lw[:, T - 1, None, :], noise)
+        nxt = torch.stack([f[:, T - 1].gather(1, sel).to(torch.int32) for f in parts], dim=-1)
+        return lw, parts, g, nxt
+
+    def launch(idx, lw, parts, u, nxt, traj):
+        k3.backward_step_cuda(idx, (lw, *parts), u, nxt, traj, st.rho_both, params.log_p_control,
+                              params.log_p_merged, params.min_duration)
+
+    checks = {}
+    for label, U in (("cell", 2), ("u32", 32)):
+        lw, parts, g, nxt = history(U)
+        u = torch.empty((U, B, N), device=device)
+        traj = torch.zeros((U, T, B, 5), dtype=torch.int32, device=device)
+        idx = torch.tensor([T - 2, 0], device=device)
+        ties = 0
+        for t in range(T - 2, -1, -1):
+            torch.rand(u.shape, generator=g, out=u)
+            cur = State(*(f[:, t] for f in parts))
+            v = bw._noise(u) + bw._backward_logits(params, cur, State(*nxt.unbind(-1)), lw[:, t],
+                                                   history_layout=True)
+            want = torch.stack([f.gather(1, v.argmax(-1)).to(torch.int32) for f in cur], dim=-1)
+            got = nxt.clone()
+            before = k3.KERNEL.launches
+            launch(idx, lw, parts, u, got, traj)
+            check(k3.KERNEL.launches == before + 1, f"K3 {label}: {k3.KERNEL.launches - before} launches a call")
+            check(idx.tolist() == [t - 1, 0], f"K3 {label}: index {idx.tolist()} after site {t}")
+            check(torch.equal(traj[:, t], got), f"K3 {label}: trajectory row {t} is not the new carry")
+            differ = (got != want).any(-1)
+            if bool(differ.any()):  # only a float32 tie of the plain version's largest noisy logits may differ
+                state = torch.stack([f.to(torch.int32) for f in cur], dim=-1)
+                mine = (state[:, None] == got[:, :, None]).all(-1)
+                best = torch.where(mine, v, float("-inf")).amax(-1)[differ].double()
+                top = v.amax(-1)[differ].double()
+                check(bool(((top - best).abs() <= 4 * torch.finfo(torch.float32).eps * top.abs()).all()),
+                      f"K3 {label}: site {t} draws a state the plain version's logits do not tie")
+                ties += int(differ.sum())
+            nxt = got
+        checks[label] = {"rows": (T - 1) * U * B, "rows_drawn_differently": ties}
+        check(ties <= 1e-3 * (T - 1) * U * B, f"K3 {label}: {ties} rows drawn differently")
+    print(f"K3 vs plain: {T - 1} sites of a filter history at M={M} N={N} B={B} R={R}, U=2 and U=32, from the "
+          f"same carry and uniforms: rows drawn differently (float32 ties) "
+          f"{ {k: v['rows_drawn_differently'] for k, v in checks.items()} } of "
+          f"{ {k: v['rows'] for k, v in checks.items()} }; one launch a site; the index counted down")
+
+    def timed(U):
+        """ms, plain_ms: per call through the wrapper and of the plain
+        version (_plain_site from the uniforms: the noise, logits, argmax
+        and writes), CUDA events over 100 and 20 calls, best of 3.
+        device_ms, plain_device_ms: each as a graph of 20 calls replayed
+        10 times behind a spin, best of 3. The draws (torch.rand), common
+        to both, are left out. bound_ms: the shape's bytes (the history row
+        and the uniforms read once, the carry read and written, the
+        trajectory row written; the hazard lookups left out, < 1%) over
+        3.35 TB/s. Every series restarts the index at T - 2."""
+        lw, parts, g, nxt = history(U)
+        u = torch.rand((U, B, N), generator=g, device=device)
+        traj = torch.zeros((U, T, B, 5), dtype=torch.int32, device=device)
+        idx = torch.tensor([T - 2, 0], device=device)
+        k3_call = lambda: launch(idx, lw, parts, u, nxt, traj)
+        plain_call = lambda: bw._plain_site(params, lw, parts, idx[:1], nxt, traj, bw._noise(u))
+
+        def events_ms(fn, n):
+            idx[0] = T - 2
+            return _events_ms(device, fn, n, False)
+
+        def graph_ms(fn, reps=20, replays=10):
+            idx[0] = T - 2
+            fn()
+            torch.cuda.synchronize(device)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(reps):
+                    fn()
+            best = math.inf
+            for _ in range(3):
+                idx[0] = T - 2
+                torch.cuda.synchronize(device)
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(20_000_000)
+                start.record()
+                for _ in range(replays):
+                    graph.replay()
+                end.record()
+                torch.cuda.synchronize(device)
+                best = min(best, start.elapsed_time(end) / (replays * reps))
+            return best
+
+        n_bytes = U * (15 * N + 4 * B * N + 3 * 20 * B) + 4 * (R * R + 4 + 2 * R)
+        out = {
+            "ms": min(events_ms(k3_call, 100) for _ in range(3)),
+            "plain_ms": min(events_ms(plain_call, 20) for _ in range(3)),
+            "device_ms": graph_ms(k3_call), "plain_device_ms": graph_ms(plain_call),
+            "bytes": n_bytes, "bound_ms": 1e3 * n_bytes / 3.35e12, "bound_by": "bytes",
+        }
+        print(f"K3 at U={U} B={B} N={N}: per call through the wrapper {out['ms']:.4f} ms (plain "
+              f"{out['plain_ms']:.4f} ms; CUDA events, best of 3); on the card, replayed in a graph, "
+              f"{1e3 * out['device_ms']:.2f} us a site step (plain {1e3 * out['plain_device_ms']:.2f} us); bound "
+              f"{1e6 * out['bound_ms']:.1f} ns ({n_bytes} bytes, by {out['bound_by']})")
+        return out
+
+    return checks, {"two_group_cell": timed(2), "two_group_u32": timed(32)}
 
 
 # ---------------------------------------------------------------- hazard ----
@@ -1891,6 +2075,7 @@ def _trace_shares(path):
     return {"events": len(events), "kernels": len(kernels),
             "k1_kernels": sum("optimal_resampling" in k["name"] for k in kernels),
             "k2_kernels": sum("filter_step" in k["name"] for k in kernels),
+            "k3_kernels": sum("backward_step" in k["name"] for k in kernels),
             "kernels_in_range": in_range, "graph_launches_in_range": graph_launches,
             "graph_kernels_in_range": graph_kernels, "ranges_us": {k: v[1] - v[0] for k, v in ranges.items()},
             "window_us": hi - lo, "busy_us": busy, "busy_share": busy / (hi - lo) if hi > lo else 0.0}
@@ -1947,6 +2132,7 @@ def trace_phase(device, root, data_dir, sg_dir, segment_size, buffer_size, seed=
           f"trace: {sh['k1_kernels']} K1 kernels in the trace, the wrapper counted {launches} (CUPTI records "
           "what the ctypes launch of the kernel puts on the stream only if it sees the launch)")
     check(sh["k2_kernels"] == launches, f"trace: {sh['k2_kernels']} K2 kernels in the trace, K1's {launches}")
+    check(sh["k3_kernels"] == T - 1, f"trace: {sh['k3_kernels']} K3 kernels in the trace, {T - 1} backward sites")
     per_site = {k: v / T for k, v in sh["kernels_in_range"].items()}
     # Each loop steps its first site eagerly and replays the other T - 2.
     check(set(sh["graph_launches_in_range"]) == {"infer.filter", "infer.backward"}
@@ -1954,9 +2140,11 @@ def trace_phase(device, root, data_dir, sg_dir, segment_size, buffer_size, seed=
           f"trace: CUDA graph launches in the loops {sh['graph_launches_in_range']}")
     replays_per_site = {k: v / (T - 2) for k, v in sh["graph_launches_in_range"].items()}
     graph_kernels_per_site = {k: v / (T - 2) for k, v in sh["graph_kernels_in_range"].items()}
-    # A filter site is two draws, K1, K2 and the index's advance.
-    check(graph_kernels_per_site["infer.filter"] <= 10,
-          f"trace: {graph_kernels_per_site['infer.filter']:.2f} kernels a replayed filter site, more than 10")
+    # A filter site is two draws, K1, K2 and the index's advance; a backward
+    # site the draw and K3.
+    for loop in ("infer.filter", "infer.backward"):
+        check(graph_kernels_per_site[loop] <= 10,
+              f"trace: {graph_kernels_per_site[loop]:.2f} kernels a replayed site of {loop}, more than 10")
     # The profiler slows the host several times over, so the traced window's
     # busy share understates the untraced run's: set the device time the
     # trace holds against the untraced run's filter and backward seconds.
@@ -2450,7 +2638,7 @@ def _world2_rank(rank, rendezvous, kw, out_dir, N, device_str):
     gloo on the one card, both schemes through infer_chromosome_meshed;
     writes its launches, messages and chunks to out_dir/rank{rank}.json."""
     import torch
-    from hygeia_tpu_torch.ops import cuda_filter_step
+    from hygeia_tpu_torch.ops import cuda_backward_step, cuda_filter_step
     from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
     from hygeia_tpu_torch.parallel.launcher import initialize_distributed
     from hygeia_tpu_torch.parallel.sharded import MESSAGES
@@ -2459,6 +2647,7 @@ def _world2_rank(rank, rendezvous, kw, out_dir, N, device_str):
     device = torch.device(device_str)
     if device.type == "cuda":
         torch.cuda.set_device(device)
+    count_backward_sites()
     check(initialize_distributed(f"file://{rendezvous}", 2, rank, backend="gloo") == (rank, 2), "world 2: join")
     rec = {}
     for boundary in ("halo", "exchange"):
@@ -2470,6 +2659,7 @@ def _world2_rank(rank, rendezvous, kw, out_dir, N, device_str):
                                     device=device, timings=tim)
         t = tim[N]
         rec[boundary] = {"launches": KERNEL.launches, "k2_launches": cuda_filter_step.KERNEL.launches,
+                         "k3_launches": cuda_backward_step.KERNEL.launches, "backward_sites": BACKWARD_SITES[0],
                          "messages": MESSAGES.rounds, "calls": MESSAGES.calls,
                          "chunks": t["chunks"], "wall_s": time.perf_counter() - t0,
                          **{k: t[k] for k in ("filter_s", "backward_s", "messages_s")}}
@@ -2530,6 +2720,10 @@ def world2_phase(device, root, n_sites, segment_size, buffer_size, seed=8):
             check(got["k2_launches"] == got["launches"],
                   f"world 2 {boundary}: rank {r}'s K2 launched {got['k2_launches']} times, K1 {got['launches']}")
             K2_LAUNCHES["meshed_world2"] = K2_LAUNCHES.get("meshed_world2", 0) + got["k2_launches"]
+            check(got["k3_launches"] == got["backward_sites"] > 0,
+                  f"world 2 {boundary}: rank {r}'s K3 launched {got['k3_launches']} times for "
+                  f"{got['backward_sites']} backward sites")
+            K3_LAUNCHES["meshed_world2"] = K3_LAUNCHES.get("meshed_world2", 0) + got["k3_launches"]
             launches += got["launches"]
         got = ranks[0][boundary]
         check(got["messages"] == ref[boundary]["messages"] == got["calls"],
@@ -2693,7 +2887,7 @@ def main(argv=None):
     card = card_line()
     print(card)
 
-    from hygeia_tpu_torch.ops import build, cuda_filter_step
+    from hygeia_tpu_torch.ops import build, cuda_backward_step, cuda_filter_step
     from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
     from hygeia_tpu_torch.ops.probe import PROBE
 
@@ -2702,6 +2896,7 @@ def main(argv=None):
     KERNEL.load()
     PROBE.load()
     cuda_filter_step.KERNEL.load()
+    cuda_backward_step.KERNEL.load()
     print(f"build: {[s.name for s in build.sources()]} in {time.perf_counter() - t0:.2f} s, one nvcc each in "
           f"parallel: " + ", ".join(f"{k} {v.seconds:.2f} s" for k, v in builds.items()))
     for name, info in builds.items():
@@ -2712,6 +2907,8 @@ def main(argv=None):
     max_err, times = kernel_phase(device)
     pr_stats, pr_launches = probe_phase(device)
     k2_err, k2_times = filter_step_phase(device)
+    k3_checks, k3_times = backward_step_phase(device)
+    count_backward_sites()
     onsets = hazard_phase(device)
     offpath = offpath_phase(device)
 
@@ -2846,6 +3043,22 @@ def main(argv=None):
         "library_ms": None,
         "library": "no single PyTorch call computes it",
         "by_shape": k2_times,
+    }, {
+        "name": "backward_step",
+        "route": "cuda",
+        "source": "hygeia_tpu_torch/csrc/backward_step.cu",
+        # No TPU kernel: the JAX package composes the step from XLA ops.
+        "replaces": "hygeia_tpu/two_group/backward.py",
+        # Every two-group run's K3 launches, each checked equal to its backward sites.
+        "launches": sum(K3_LAUNCHES.values()),
+        "launches_by_path": K3_LAUNCHES,
+        "checks": k3_checks,
+        "shape": "U=2 B=25 N=2400 R=6 (the benchmark cell's)",
+        **{k: k3_times["two_group_cell"][k] for k in ("ms", "plain_ms", "device_ms", "plain_device_ms", "bytes",
+                                                       "bound_ms", "bound_by")},
+        "library_ms": None,
+        "library": "no single PyTorch call computes it",
+        "by_shape": k3_times,
     }], "card": card, "hazard_onsets": onsets, "single_group": sg_stats, "slice": stats,
         "streamed": st_stats, "chromosome": ch_stats, "robust": rb_stats, "blocked": bl_stats,
         "pipeline": pl_stats, "single_group_pipeline": sgp_stats, "marginal": mg_stats, "offpath": offpath,

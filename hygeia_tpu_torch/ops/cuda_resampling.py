@@ -65,8 +65,9 @@ def supports(n, m):
 
 
 # Every kernel counted through replays (K1 here, K2 in
-# ops/cuda_filter_step.py), in the order made: ops/site_graphs.py adds
-# each one's captured launches to its count at every replay.
+# ops/cuda_filter_step.py, K3 in ops/cuda_backward_step.py), in the order
+# made: ops/site_graphs.py adds each one's captured launches to its count
+# at every replay.
 KERNELS = []
 
 

@@ -11,12 +11,20 @@ walk is a site step with no host synchronisation that reads its site from
 a device index it counts down: on a CUDA device a replayed CUDA graph of K
 sites (ops/site_graphs.py, the counterpart of JAX's reverse ``lax.scan``),
 on the CPU an eager loop. Dead slots are excluded by their -inf weights.
+
+``backward_site`` is the step of every backward loop: on the CPU the plain
+composition (``_plain_site``: ``_backward_logits`` with the structured
+hazards, the Gumbel transform of the site's uniforms, ``_categorical_rows``
+and the writes), on the card one launch of K3 (ops/cuda_backward_step.py),
+which does all of it for every unit and row. The uniforms are drawn by
+``torch.rand`` from the same generators on both, into rows of one buffer.
 """
 
 from __future__ import annotations
 
 import torch
 
+from hygeia_tpu_torch.ops.cuda_backward_step import backward_step_cuda
 from hygeia_tpu_torch.ops.hazard import gather_rho
 from hygeia_tpu_torch.ops.site_graphs import SITES_PER_GRAPH, SiteLoop
 from hygeia_tpu_torch.two_group.model import State, TwoGroupParams
@@ -140,15 +148,29 @@ def gumbel(shape, *, generator, dtype=torch.float32, device=None):
     """Standard Gumbel noise -log(-log(u)), u uniform on [tiny, 1), as
     jax.random.gumbel draws it. ``generator`` may be a list of shape[0]
     generators: row u then holds what a one-row draw on generator u holds."""
-    tiny = torch.finfo(dtype).tiny
+    return _noise(_draw_uniforms(torch.empty(shape, dtype=dtype, device=device), generator))
+
+
+def _draw_uniforms(u, generator):
+    """Fill u with uniforms on [0, 1) from ``generator`` (one, or a list of
+    u.shape[0]: row k holds what a one-row draw on generator k holds).
+    Returns u."""
     if isinstance(generator, (list, tuple)):
-        if len(generator) != shape[0]:
-            raise ValueError(f"{len(generator)} generators for {shape[0]} units")
-        u = torch.cat([torch.rand((1, *shape[1:]), generator=g, dtype=dtype, device=device)
-                       for g in generator])
+        if len(generator) != u.shape[0]:
+            raise ValueError(f"{len(generator)} generators for {u.shape[0]} units")
+        for k, g in enumerate(generator):
+            torch.rand((1, *u.shape[1:]), generator=g, out=u[k : k + 1])
     else:
-        u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
-    return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+        torch.rand(u.shape, generator=generator, out=u)
+    return u
+
+
+def _noise(uniforms=None, noise=None):
+    """A site's Gumbel noise: ``noise`` where injected, else -log(-log(u))
+    of its uniforms u clamped to [tiny, 1)."""
+    if noise is not None:
+        return noise
+    return -torch.log(-torch.log(torch.clamp(uniforms, min=torch.finfo(uniforms.dtype).tiny)))
 
 
 def _categorical_rows(logits, noise):
@@ -203,55 +225,72 @@ def backward_simulation_conditioned(
     so trajectories join exactly across blocks. Elsewhere the terminal is
     drawn from the final weights, as ``backward_simulation`` does. Noise is
     consumed as in ``backward_simulation``: one (U, B, N) draw per site,
-    from T-1 down to 0. Sites T-2..0 run as ``_site_step``: CUDA graphs of
-    ``sites_per_graph`` sites on the card, an eager loop on the CPU; the
-    terminal draw runs eagerly. Injected ``noise`` is a CPU-only route."""
+    from T-1 down to 0. Sites T-2..0 run as ``backward_site``: CUDA graphs
+    of ``sites_per_graph`` sites on the card, an eager loop on the CPU; the
+    terminal draw runs eagerly, against terminal_state as ``backward_site``
+    too. Injected ``noise`` is a CPU-only route."""
     U, T, N = log_weights.shape
     B = terminal_state.shape[1] if terminal_state is not None else num_simulations
     dev = log_weights.device
     if noise is None:
-        noise = lambda t: gumbel((U, B, N), generator=generator, dtype=log_weights.dtype, device=dev)
+        u = torch.empty((U, B, N), dtype=log_weights.dtype, device=dev)  # every site's draws, in turn
+        draw = lambda: {"uniforms": _draw_uniforms(u, generator)}
     elif dev.type != "cpu":
         raise ValueError("injected backward noise is a CPU-only route; on the card pass a generator")
+    else:
+        sites = [T]  # the sites' order is counted on the host for injected noise
+
+        def draw():
+            sites[0] -= 1
+            return {"noise": noise(sites[0])}
 
     traj = torch.empty((U, T, B, 5), dtype=torch.int32, device=dev)
-    last = State(*(f[:, T - 1] for f in particles))
-    last_lw = log_weights[:, T - 1]
-    eps = noise(T - 1)
-    if use_terminal is False:
-        idx = _categorical_rows(last_lw[:, None, :], eps)  # (U, B)
-    else:
-        term = State(*(terminal_state[..., i].to(torch.int32) for i in range(5)))
-        logits = _backward_logits(params, last, term, last_lw, history_layout=True)
-        idx = _categorical_rows(logits, eps)
-        if use_terminal is not True:
-            idx = torch.where(use_terminal[:, None], idx, _categorical_rows(last_lw[:, None, :], eps))
-    nxt = torch.stack([f.gather(1, idx).to(torch.int32) for f in last], dim=-1)  # (U, B, 5)
-    traj[:, T - 1] = nxt
-    # The carry nxt is overwritten in place; t counts down from T - 2 on
-    # the device, and on the host for injected noise (an eager route).
-    t_dev = torch.full((1,), T - 2, dtype=torch.int64, device=dev)
-    t_host = [T - 2]
+    # t counts down on the device: idx = (t, 0) (backward_site). The carry
+    # nxt (U, B, 5) is overwritten in place.
+    idx = torch.tensor([T - 1 if use_terminal is not False else T - 2, 0], dtype=torch.int64, device=dev)
+    site = draw()
+    if use_terminal is not False:  # site T - 1 against the next block's states, as any site
+        nxt = torch.empty((U, B, 5), dtype=torch.int32, device=dev).copy_(terminal_state)
+        backward_site(params, log_weights, particles, idx, nxt, traj, **site)
+    if use_terminal is not True:  # the terminal from the final weights
+        sel = _categorical_rows(log_weights[:, T - 1, None, :], _noise(**site))  # (U, B)
+        free = torch.stack([f[:, T - 1].gather(1, sel).to(torch.int32) for f in particles], dim=-1)
+        nxt = free if use_terminal is False else torch.where(use_terminal[:, None, None], nxt, free)
+        traj[:, T - 1] = nxt
 
-    def draw():
-        t_host[0] -= 1
-        return noise(t_host[0] + 1)
-
-    step = lambda: _site_step(params, log_weights, particles, t_dev, nxt, traj, draw)
+    step = lambda: backward_site(params, log_weights, particles, idx, nxt, traj, **draw())
     with SiteLoop(dev, sites_per_graph, generator) as loop:
         loop.run(step, T - 1)
     return traj
 
 
-def _site_step(params, log_weights, particles, t_dev, nxt, traj, draw):
-    """Site t of the reverse walk, replayable as a CUDA graph: t is read
-    from the device index ``t_dev`` (1,), which the step counts down; the
-    next site's states ``nxt`` (U, B, 5) and the trajectories' row t are
-    written in place."""
+def backward_site(params, log_weights, particles, idx, nxt, traj, uniforms=None, noise=None):
+    """Site t of the reverse walk for every unit, the step of every backward
+    loop, replayable as a CUDA graph: t is read from the device index
+    ``idx`` = (t, 0) (int64, (2,)), which the step counts down to t - 1;
+    the next site's states ``nxt`` (U, B, 5) int32 are overwritten with the
+    states drawn at t, which also go to row t of ``traj`` (U, T, B, 5).
+    The draws' noise is the Gumbel transform of ``uniforms`` (U, B, N), or
+    ``noise`` itself where injected (CPU only).
+
+    CPU tensors take the plain version, ``_plain_site``; a CUDA tensor
+    takes K3 (ops/cuda_backward_step.py), with f32 weights and uniforms
+    and the filter history's dtypes, or the call raises."""
+    if log_weights.device.type != "cpu":
+        st = params.step_tables()
+        backward_step_cuda(idx, (log_weights, *particles), uniforms, nxt, traj, st.rho_both, params.log_p_control,
+                           params.log_p_merged, params.min_duration)
+        return
+    _plain_site(params, log_weights, particles, idx[:1], nxt, traj, _noise(uniforms, noise))
+
+
+def _plain_site(params, log_weights, particles, t_dev, nxt, traj, noise):
+    """``backward_site`` in plain PyTorch, K3's plain version: t is read
+    from the device index ``t_dev`` (1,), which the step counts down."""
     cur = State(*(f.index_select(1, t_dev).squeeze(1) for f in particles))
     lw_t = log_weights.index_select(1, t_dev).squeeze(1)
     logits = _backward_logits(params, cur, State(*nxt.unbind(-1)), lw_t, history_layout=True)
-    sel = _categorical_rows(logits, draw())
+    sel = _categorical_rows(logits, noise)
     new = torch.stack([f.gather(1, sel).to(torch.int32) for f in cur], dim=-1)
     traj.index_copy_(1, t_dev, new[:, None])
     nxt.copy_(new)

@@ -1,7 +1,7 @@
-"""The port on the card: the optimal-resampler kernel K1 and the
-filter-step kernel K2 against their plain PyTorch versions on the same
-tensors and uniforms, the single-group hazard tables against the CPU's,
-and the paths that go through the kernels.
+"""The port on the card: the optimal-resampler kernel K1, the filter-step
+kernel K2 and the backward-step kernel K3 against their plain PyTorch
+versions on the same tensors and uniforms, the single-group hazard tables
+against the CPU's, and the paths that go through the kernels.
 
 Marked ``cuda``; skipped where there is no CUDA device. On the machine with
 the GPU (no JAX there, so without the repo's conftest):
@@ -21,7 +21,10 @@ order). The filter-step kernel K2 against its plain version from the
 same K1 outputs: children, parents, the -inf pattern and the degenerate
 flags equal; finite weights and shifts within atol 2e-5, rtol 1e-6 (its
 terms are the plain version's bit for bit; the shift's sum of
-exponentials is taken in another order).
+exponentials is taken in another order). K3 against its plain version
+from the same carry and uniforms: the draws equal; a row that differed
+would have to be a tie within float32 rounding of the plain version's
+largest noisy logits (its terms are the plain version's bit for bit).
 """
 
 import numpy as np
@@ -29,6 +32,7 @@ import pytest
 import torch
 
 from hygeia_tpu_torch.ops import resampling as plain
+from hygeia_tpu_torch.ops import cuda_backward_step as k3
 from hygeia_tpu_torch.ops import cuda_filter_step as k2
 from hygeia_tpu_torch.ops import cuda_resampling as cr
 
@@ -390,6 +394,167 @@ def test_every_two_group_filter_path_on_the_card_launches_k2_with_k1(device, pat
                         "cuda", "--n_observations", str(T), "--run_inference"])
         assert out["N"] == M * 48 and k2.KERNEL.launches - k2_before == T - 1
     assert k2.KERNEL.launches - k2_before == cr.KERNEL.launches - k1 > 0
+
+
+# ---- K3, the backward pass's site step (ops/cuda_backward_step.py) ----------
+
+@pytest.mark.parametrize("U,T", [(2, 300), (32, 200)])
+def test_k3_matches_the_plain_composition(device, U, T):
+    """K3 against _backward_logits(history_layout=True) + the Gumbel
+    transform + argmax on the card, site after site of a filter history at
+    M = 50 (N = 2,400), B = 25, from the same carry and the same uniforms:
+    the drawn states are equal on every row. A row that differed would have
+    to be a tie: the plain version's largest noisy logit among the particles
+    of K3's state within float32 rounding of the row's largest; the count of
+    such rows is reported. Row t of the trajectories is the new carry, the
+    index goes to t - 1 and its count back to 0; one launch a site."""
+    from hygeia_tpu_torch.two_group import backward as bw
+    from hygeia_tpu_torch.two_group.filter import run_filter
+    from hygeia_tpu_torch.two_group.model import State
+
+    M, B = 50, 25
+    params = _k2_params(device, 6, T)
+    E_c, E_k = _graph_tables(params, T, U, seed=U)
+    res = run_filter(params, E_c, E_k, M, n_units=U, generator=torch.Generator(device=device).manual_seed(U))
+    lw, parts = res.log_weights, res.particles
+    N = lw.shape[-1]
+    st = params.step_tables()
+    g = torch.Generator(device=device).manual_seed(17)
+    u = torch.empty((U, B, N), device=device)
+    term = bw._categorical_rows(lw[:, T - 1, None, :], bw._noise(torch.rand(u.shape, generator=g, device=device)))
+    nxt = torch.stack([f[:, T - 1].gather(1, term).to(torch.int32) for f in parts], dim=-1)
+    traj = torch.zeros((U, T, B, 5), dtype=torch.int32, device=device)
+    idx = torch.tensor([T - 2, 0], device=device)
+    ties = 0
+    for t in range(T - 2, -1, -1):
+        torch.rand(u.shape, generator=g, out=u)
+        cur = State(*(f[:, t] for f in parts))
+        v = bw._noise(u) + bw._backward_logits(params, cur, State(*nxt.unbind(-1)), lw[:, t], history_layout=True)
+        want = torch.stack([f.gather(1, v.argmax(-1)).to(torch.int32) for f in cur], dim=-1)
+        got = nxt.clone()
+        before = k3.KERNEL.launches
+        k3.backward_step_cuda(idx, (lw, *parts), u, got, traj, st.rho_both, params.log_p_control,
+                              params.log_p_merged, params.min_duration)
+        assert k3.KERNEL.launches == before + 1
+        assert idx.tolist() == [t - 1, 0]
+        assert torch.equal(traj[:, t], got)
+        differ = (got != want).any(-1)
+        if bool(differ.any()):
+            state = torch.stack([f.to(torch.int32) for f in cur], dim=-1)  # (U, N, 5)
+            mine = (state[:, None] == got[:, :, None]).all(-1)  # (U, B, N): particles of K3's state
+            best = torch.where(mine, v, float("-inf")).amax(-1)[differ].double()
+            top = v.amax(-1)[differ].double()
+            assert bool(((top - best).abs() <= 4 * torch.finfo(torch.float32).eps * top.abs()).all()), (
+                f"site {t}: K3's draw is not a float32 tie with the plain version's")
+            ties += int(differ.sum())
+        nxt = got
+    print(f"K3 vs plain at U={U}: {(T - 1) * U * B} rows, {ties} drawn differently (float32 ties)")
+    assert ties == 0 or ties <= 1e-3 * (T - 1) * U * B
+
+
+def test_k3_refuses_what_it_cannot_take(device):
+    """f64 weights (through the backward pass too), a history that is not
+    contiguous, an N that is not M * (2R + R^2), a row beyond shared
+    memory, injected noise: each raises before a launch; nothing falls
+    back."""
+    from hygeia_tpu_torch.two_group.backward import backward_simulation
+
+    U, T, B, R = 2, 4, 3, 6
+    params = _k2_params(device, R, T)
+    st = params.step_tables()
+
+    def launch(N, lw_dtype=torch.float32, hist_slice=False):
+        hist = [torch.zeros((U, T, N), dtype=dt, device=device) for dt in k2.HISTORY_DTYPES]
+        hist[0] = hist[0].to(lw_dtype)
+        if hist_slice:
+            hist[0] = torch.zeros((U, T, 2 * N), device=device)[..., :N]
+        k3.backward_step_cuda(torch.tensor([T - 1, 0], device=device), hist,
+                              torch.zeros((U, B, N), device=device), torch.zeros((U, B, 5), dtype=torch.int32,
+                                                                                 device=device),
+                              torch.zeros((U, T, B, 5), dtype=torch.int32, device=device), st.rho_both,
+                              params.log_p_control, params.log_p_merged, params.min_duration)
+
+    before = k3.KERNEL.launches
+    with pytest.raises(TypeError, match=r"hist\[0\] has dtype"):
+        launch(2400, torch.float64)
+    with pytest.raises(ValueError, match="contiguous"):
+        launch(2400, hist_slice=True)
+    with pytest.raises(ValueError, match="N = M"):
+        launch(2401)
+    with pytest.raises(ValueError, match="shared memory"):
+        launch(20_000 * 48)
+    parts = [torch.zeros((U, T, 2400), dtype=dt, device=device) for dt in k2.HISTORY_DTYPES[1:]]
+    with pytest.raises(TypeError):
+        backward_simulation(params, torch.zeros((U, T, 2400), dtype=torch.float64, device=device), parts, B,
+                            generator=torch.Generator(device=device).manual_seed(0))
+    with pytest.raises(ValueError, match="CPU-only"):
+        backward_simulation(params, torch.zeros((U, T, 2400), device=device), parts, B, noise=lambda t: None)
+    assert k3.KERNEL.launches == before
+
+
+def _count_backward_sites(monkeypatch):
+    """Patch backward_simulation_conditioned wherever a path takes it from
+    (backward_simulation calls it too) to add each call's backward sites,
+    T - 1 and one more for a conditioned terminal draw, to the list's one
+    entry."""
+    from hygeia_tpu_torch.parallel import sharded
+    from hygeia_tpu_torch.two_group import backward as bw
+    from hygeia_tpu_torch.two_group import streaming
+
+    sites = [0]
+    orig = bw.backward_simulation_conditioned
+
+    def counted(params, log_weights, particles, terminal_state, use_terminal, **kw):
+        sites[0] += log_weights.shape[1] - 1 + (use_terminal is not False)
+        return orig(params, log_weights, particles, terminal_state, use_terminal, **kw)
+
+    for mod in (bw, streaming, sharded):
+        monkeypatch.setattr(mod, "backward_simulation_conditioned", counted)
+    return sites
+
+
+@pytest.mark.parametrize("path", ["monolithic", "streamed", "meshed_halo", "meshed_exchange", "simulator",
+                                  "marginal"])
+def test_every_two_group_backward_path_on_the_card_launches_k3_once_a_site(device, path, tmp_path, monkeypatch):
+    """Every backward site of a two-group path is one K3 launch: INFER's
+    monolithic call (infer_segment), streamed INFER, meshed INFER with both
+    boundaries (per-unit generators, conditioned and mixed terminal draws)
+    and the simulator's self-test; the marginal filter draws none."""
+    from hygeia_tpu_torch import cli
+    from hygeia_tpu_torch.parallel import make_mesh, sharded_two_group_inference
+    from hygeia_tpu_torch.two_group.marginal import run_marginal_filter
+    from hygeia_tpu_torch.two_group.runner import infer_segment
+    from hygeia_tpu_torch.two_group.streaming import streamed_inference
+
+    sites = _count_backward_sites(monkeypatch)
+    T, M, U = 120, 50, 2
+    params = _k2_params(device, 6, T)
+    E_c, E_k = _graph_tables(params, T, U, seed=5)
+    gen = lambda s: torch.Generator(device=device).manual_seed(s)
+    before = k3.KERNEL.launches
+    if path == "monolithic":
+        infer_segment(results_dir=str(tmp_path / "out"), device=device, seed=[0, 1], **_infer_dataset(tmp_path, T))
+        assert sites[0] == T - 1
+    elif path == "streamed":
+        streamed_inference(params, E_c, E_k, M, 25, n_units=U, generator=gen(4), backward_generator=gen(5),
+                           block_size=48)
+        assert sites[0] == T - 1
+    elif path.startswith("meshed"):
+        rng = np.random.default_rng(3)
+        n = rng.poisson(20, size=(200, 2)).astype(np.float32)
+        y = np.minimum(rng.poisson(10, size=(200, 2)), n).astype(np.float32)
+        sharded_two_group_inference(make_mesh(4, 2, device=device), _k2_params(device, 6, 200), y, n, y, n,
+                                    segment_size=50, buffer_size=10, num_resampled_ancestors=M,
+                                    num_samples_backward=25, seeds=[0, 1], boundary=path[len("meshed_"):])
+    elif path == "simulator":
+        cli.main(["simulate_two_groups", "--results_dir", str(tmp_path / "sim"), "--seed", "0", "--device",
+                  "cuda", "--n_observations", str(T), "--run_inference"])
+        assert sites[0] == T - 1
+    else:
+        run_marginal_filter(params, E_c[0], E_k[0], M, n_units=U, generator=gen(3))
+        assert sites[0] == 0
+    assert k3.KERNEL.launches - before == sites[0]
+    assert (sites[0] > 0) == (path != "marginal")
 
 
 @pytest.mark.parametrize("kappa_fixed", [True, False])
@@ -784,12 +949,13 @@ def test_infer_call_on_the_card_counts_nodes_a_replayed_site(recorded_card_call)
     # Each loop runs T - 1 = 119 sites, the first eagerly.
     assert counters["site_loop.sites_replayed"] == 2 * 118
     # A filter site is two draws, K1, K2 and the index's add (5 nodes), a
-    # backward site ~120 nodes: ~63 a site over both loops.
-    assert 40 <= counters["site_loop.nodes_replayed"] / counters["site_loop.sites_replayed"] <= 100
+    # backward site a draw a unit and K3 (3 nodes at U = 2): ~4 a site over
+    # both loops.
+    assert 2 <= counters["site_loop.nodes_replayed"] / counters["site_loop.sites_replayed"] <= 10
     by_id = {s.id: s for s in got}
-    filt = [s for s in got if s.name == "site_loop.capture"
-            and by_id[by_id[s.parent].parent].name == "infer.filter"]
-    assert filt and all(s.attrs["nodes"] <= 10 * s.attrs["sites"] for s in filt)
+    caps = [s for s in got if s.name == "site_loop.capture"]
+    assert {by_id[by_id[s.parent].parent].name for s in caps} == {"infer.filter", "infer.backward"}
+    assert all(s.attrs["nodes"] <= 10 * s.attrs["sites"] for s in caps)
 
 
 def test_infer_call_on_the_card_writes_the_same_files_with_the_recorder_on(recorded_card_call):
@@ -888,8 +1054,9 @@ def _graph_tables(params, T, U, seed):
 def test_graphed_filter_and_backward_equal_eager(device, K):
     """T = 206 at M = 50 (N = 2400), U = 3 units with per-unit generators
     and per-unit segments, warm for two units (use_init): run_filter and
-    both backward forms replayed as graphs of K sites equal their eager
-    runs (sites_per_graph=0) bit for bit; K1's count counts the replays."""
+    both backward forms (K3 a site) replayed as graphs of K sites equal
+    their eager runs (sites_per_graph=0) bit for bit; K1's and K3's counts
+    count the replays."""
     from hygeia_tpu_torch.two_group.backward import backward_simulation, backward_simulation_conditioned
     from hygeia_tpu_torch.two_group.filter import run_filter
 
@@ -905,10 +1072,13 @@ def test_graphed_filter_and_backward_equal_eager(device, K):
         res = run_filter(params, E_c, E_k, M, n_units=U, generator=gens(7), init_state=init,
                          use_init=[True, False, True], sites_per_graph=k)
         assert cr.KERNEL.launches - before == T - 1 + 1  # the warm step, then sites 1..T-1
+        before = k3.KERNEL.launches
         traj = backward_simulation(params, res.log_weights, res.particles, B, generator=gens(11), sites_per_graph=k)
+        assert k3.KERNEL.launches - before == T - 1  # one a backward site
         cond = backward_simulation_conditioned(params, res.log_weights, res.particles, traj[:, 0],
                                                torch.tensor([True, False, True], device=device),
                                                generator=gens(13), sites_per_graph=k)
+        assert k3.KERNEL.launches - before == 2 * (T - 1) + 1  # and the conditioned terminal draw
         out[k] = [res.log_weights, *res.particles, res.log_normalizing_constant, res.shifts,
                   res.degenerate_steps, traj, cond]
     for a, b in zip(out[0], out[K]):
