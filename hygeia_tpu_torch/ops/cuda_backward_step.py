@@ -23,9 +23,8 @@ import ctypes
 
 import torch
 
-from hygeia_tpu_torch.ops import cuda_resampling
+from hygeia_tpu_torch.ops.build import SMEM_BUDGET, Kernel, check_tensor
 from hygeia_tpu_torch.ops.cuda_filter_step import HISTORY_DTYPES
-from hygeia_tpu_torch.ops.cuda_resampling import SMEM_BUDGET, _check
 
 
 def smem_bytes(m, r):
@@ -66,27 +65,7 @@ class _Args(ctypes.Structure):
         (name, ctypes.c_int) for name in ("U", "B", "N", "M", "R", "W", "min_duration")]
 
 
-class _Kernel(cuda_resampling._Kernel):
-    """K3's library and launch count, counted as K1's are (``launches``
-    through replays, ``captured`` at captures)."""
-
-    def load(self):
-        if self.lib is None:
-            from hygeia_tpu_torch.ops.build import load_library
-
-            lib, info = load_library("backward_step")
-            lib.hygeia_backward_step.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
-            lib.hygeia_backward_step.restype = ctypes.c_int
-            lib.hygeia_backward_step_args_size.restype = ctypes.c_size_t
-            lib.hygeia_backward_step_error_string.argtypes = [ctypes.c_int]
-            lib.hygeia_backward_step_error_string.restype = ctypes.c_char_p
-            if lib.hygeia_backward_step_args_size() != ctypes.sizeof(_Args):
-                raise RuntimeError("csrc/backward_step.cu's BackwardStepArgs and _Args differ in size")
-            self.lib, self.build = lib, info
-        return self.lib
-
-
-KERNEL = _Kernel()
+KERNEL = Kernel("backward_step", args=_Args)
 
 
 def check_inputs(idx, hist, uniforms, nxt, traj, rho_both, log_p_control, log_p_merged):
@@ -112,17 +91,17 @@ def check_inputs(idx, hist, uniforms, nxt, traj, rho_both, log_p_control, log_p_
         raise ValueError(f"the CUDA backward step launches a block a row: U * B = {U * B} is more than 2**31 - 1")
     f32 = torch.float32
     for k, (x, dt) in enumerate(zip(hist, HISTORY_DTYPES)):
-        _check(f"hist[{k}]", x, (U, T, N), dt, dev)
-    _check("uniforms", uniforms, (U, B, N), f32, dev)
-    _check("idx", idx, (2,), torch.int64, dev)
-    _check("nxt", nxt, (U, B, 5), torch.int32, dev)
-    _check("traj", traj, (U, T, B, 5), torch.int32, dev)
+        check_tensor(f"hist[{k}]", x, (U, T, N), dt, dev)
+    check_tensor("uniforms", uniforms, (U, B, N), f32, dev)
+    check_tensor("idx", idx, (2,), torch.int64, dev)
+    check_tensor("nxt", nxt, (U, B, 5), torch.int32, dev)
+    check_tensor("traj", traj, (U, T, B, 5), torch.int32, dev)
     if rho_both.dim() != 3:
         raise ValueError(f"rho_both must be (2, R, W), got {tuple(rho_both.shape)}")
     W = int(rho_both.shape[2])
-    _check("rho_both", rho_both, (2, R, W), f32, dev)
-    _check("log_p_control", log_p_control, (R, R), f32, dev)
-    _check("log_p_merged", log_p_merged, (2, 2), f32, dev)
+    check_tensor("rho_both", rho_both, (2, R, W), f32, dev)
+    check_tensor("log_p_control", log_p_control, (R, R), f32, dev)
+    check_tensor("log_p_merged", log_p_merged, (2, 2), f32, dev)
     return U, T, B, N, N // (2 * R + R * R), R, W
 
 
@@ -151,9 +130,5 @@ def backward_step_cuda(idx, hist, uniforms, nxt, traj, rho_both, log_p_control, 
     with torch.cuda.device(dev):
         rc = lib.hygeia_backward_step(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        msg = lib.hygeia_backward_step_error_string(rc).decode()
-        raise RuntimeError(f"backward_step kernel launch failed: {msg} ({rc})")
-    if torch.cuda.is_current_stream_capturing():
-        KERNEL.captured += 1  # recorded into a graph: counted at each replay
-    else:
-        KERNEL.launches += 1
+        KERNEL.failed(rc)
+    KERNEL.count()

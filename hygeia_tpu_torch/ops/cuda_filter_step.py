@@ -22,8 +22,8 @@ import math
 
 import torch
 
-from hygeia_tpu_torch.ops import cuda_resampling
-from hygeia_tpu_torch.ops.cuda_resampling import SMEM_BUDGET, _check
+from hygeia_tpu_torch.ops import cuda_resampling  # noqa: F401  (K1 joins build.KERNELS before K2)
+from hygeia_tpu_torch.ops.build import SMEM_BUDGET, Kernel, check_tensor
 
 ANC_FLOATS, ANC_INTS = 14, 7  # kAncF, kAncI: what the kernel stages an ancestor
 # The history's dtypes: the weights, then (m, d_c, r_c, d_k, r_k).
@@ -69,27 +69,7 @@ class _Args(ctypes.Structure):
         ("neg_log_m", ctypes.c_float), ("neg_log_n", ctypes.c_float)]
 
 
-class _Kernel(cuda_resampling._Kernel):
-    """K2's library and launch count, counted as K1's are (``launches``
-    through replays, ``captured`` at captures)."""
-
-    def load(self):
-        if self.lib is None:
-            from hygeia_tpu_torch.ops.build import load_library
-
-            lib, info = load_library("filter_step")
-            lib.hygeia_filter_step.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
-            lib.hygeia_filter_step.restype = ctypes.c_int
-            lib.hygeia_filter_step_args_size.restype = ctypes.c_size_t
-            lib.hygeia_filter_step_error_string.argtypes = [ctypes.c_int]
-            lib.hygeia_filter_step_error_string.restype = ctypes.c_char_p
-            if lib.hygeia_filter_step_args_size() != ctypes.sizeof(_Args):
-                raise RuntimeError("csrc/filter_step.cu's FilterStepArgs and _Args differ in size")
-            self.lib, self.build = lib, info
-        return self.lib
-
-
-KERNEL = _Kernel()
+KERNEL = Kernel("filter_step", args=_Args)
 
 
 def _emission_strides(name, e, U, R, device):
@@ -124,36 +104,36 @@ def check_inputs(emission_control, emission_case, idx, prev_lw, prev_parts, resa
     if refused:
         raise ValueError(refused)
     f32, i32 = torch.float32, torch.int32
-    _check("prev_lw", prev_lw, (U, N), f32, dev)
-    _check("prev_parts", prev_parts, (U, 5, N), i32, dev)
-    _check("parent_indices", resampled.parent_indices, (U, M), i32, dev)
-    _check("top_m_indices", resampled.top_m_indices, (U, M), i32, dev)
-    _check("log_c", resampled.log_c, (U,), f32, dev)
-    _check("use_unbiased", resampled.use_unbiased, (U,), torch.bool, dev)
-    _check("idx", idx, (2,), torch.int64, dev)
+    check_tensor("prev_lw", prev_lw, (U, N), f32, dev)
+    check_tensor("prev_parts", prev_parts, (U, 5, N), i32, dev)
+    check_tensor("parent_indices", resampled.parent_indices, (U, M), i32, dev)
+    check_tensor("top_m_indices", resampled.top_m_indices, (U, M), i32, dev)
+    check_tensor("log_c", resampled.log_c, (U,), f32, dev)
+    check_tensor("use_unbiased", resampled.use_unbiased, (U,), torch.bool, dev)
+    check_tensor("idx", idx, (2,), torch.int64, dev)
     if rho_both.dim() != 3:
         raise ValueError(f"rho_both must be (2, R, W), got {tuple(rho_both.shape)}")
     W = int(rho_both.shape[2])
-    _check("rho_both", rho_both, (2, R, W), f32, dev)
-    _check("log_p_control", log_p_control, (R, R), f32, dev)
-    _check("log_p_merged", log_p_merged, (2, 2), f32, dev)
+    check_tensor("rho_both", rho_both, (2, R, W), f32, dev)
+    check_tensor("log_p_control", log_p_control, (R, R), f32, dev)
+    check_tensor("log_p_merged", log_p_merged, (2, 2), f32, dev)
     strides = (*_emission_strides("emission_control", emission_control, U, R, dev),
                *_emission_strides("emission_case", emission_case, U, R, dev))
-    _check("out_lw", out_lw, (U, N), f32, dev)
-    _check("out_parts", out_parts, (U, 5, N), i32, dev)
+    check_tensor("out_lw", out_lw, (U, N), f32, dev)
+    check_tensor("out_parts", out_parts, (U, 5, N), i32, dev)
     if shifts.dim() != 2 or shifts.shape[0] != U or shifts.shape[1] < 1:
         raise ValueError(f"shifts must be ({U}, C), got {tuple(shifts.shape)}")
-    _check("shifts", shifts, tuple(shifts.shape), f32, dev)
-    _check("degen", degen, tuple(shifts.shape), torch.bool, dev)
+    check_tensor("shifts", shifts, tuple(shifts.shape), f32, dev)
+    check_tensor("degen", degen, tuple(shifts.shape), torch.bool, dev)
     h_T = 0
     if hist is not None:
         if len(hist) != 6 or hist[0].dim() != 3:
             raise ValueError("hist must be six (U, T, N) tensors: the weights and the five fields")
         h_T = int(hist[0].shape[1])
         for k, (x, dt) in enumerate(zip(hist, HISTORY_DTYPES)):
-            _check(f"hist[{k}]", x, (U, h_T, N), dt, dev)
+            check_tensor(f"hist[{k}]", x, (U, h_T, N), dt, dev)
     if parents is not None:
-        _check("parents", parents, (U, M), torch.int64, dev)
+        check_tensor("parents", parents, (U, M), torch.int64, dev)
     return U, N, R, W, strides, h_T
 
 
@@ -193,9 +173,5 @@ def filter_step_cuda(emission_control, emission_case, idx, prev_lw, prev_parts, 
     with torch.cuda.device(dev):
         rc = lib.hygeia_filter_step(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        msg = lib.hygeia_filter_step_error_string(rc).decode()
-        raise RuntimeError(f"filter_step kernel launch failed: {msg} ({rc})")
-    if torch.cuda.is_current_stream_capturing():
-        KERNEL.captured += 1  # recorded into a graph: counted at each replay
-    else:
-        KERNEL.launches += 1
+        KERNEL.failed(rc)
+    KERNEL.count()

@@ -18,16 +18,13 @@ import ctypes
 import torch
 
 from hygeia_tpu_torch.ops import resampling as plain
+from hygeia_tpu_torch.ops.build import SMEM_BUDGET, Kernel, check_tensor
 from hygeia_tpu_torch.ops.resampling import ResampleResult
 
 MAX_SLOTS = 1024  # kMaxSlots in the kernel: M + 1 must fit
 MIN_THREADS = 256  # kMinThreads: a block for N <= 256
 WIDE_THREADS = 512  # kWideThreads: a block for N > 256
 RADIX_BINS, RADIX_PASSES = 256, 6  # the select's histograms, one a pass
-# The dynamic shared memory a block may opt in to on an H100 (sm_90:
-# 227 KB, cudaDevAttrMaxSharedMemoryPerBlockOptin), less 1 KB for the
-# kernel's static shared arrays (~200 B).
-SMEM_BUDGET = 227 * 1024 - 1024
 
 
 def threads(n, m):
@@ -64,59 +61,18 @@ def supports(n, m):
     return None
 
 
-# Every kernel counted through replays (K1 here, K2 in
-# ops/cuda_filter_step.py, K3 in ops/cuda_backward_step.py), in the order
-# made: ops/site_graphs.py adds each one's captured launches to its count
-# at every replay.
-KERNELS = []
+def _declare(lib):
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.hygeia_optimal_resampling.argtypes = [vp, vp, vp, i, i, i, vp, vp, vp, vp, vp, vp]
+    lib.hygeia_optimal_resampling.restype = i
+    lib.hygeia_empty_launch.argtypes = [vp]
+    lib.hygeia_empty_launch.restype = i
+    return lib.hygeia_optimal_resampling
 
 
-class _Kernel:
-    """The loaded library and the launch count. ``launches`` goes up by one
-    per kernel launch, eager or replayed: the wrapper counts an eager
-    launch, and a CUDA graph's replay adds the launches its capture
-    recorded (ops/site_graphs.py). ``captured`` counts the launches that
-    captures recorded, which run only when replayed. Each one made joins
-    KERNELS."""
-
-    def __init__(self):
-        self.lib = None
-        self.build = None
-        self.launch = None  # the C entry, argtypes set
-        self.launches = 0
-        self.captured = 0
-        KERNELS.append(self)
-
-    def load(self):
-        if self.lib is None:
-            from hygeia_tpu_torch.ops.build import load_library
-
-            lib, info = load_library("optimal_resampling")
-            vp, i = ctypes.c_void_p, ctypes.c_int
-            lib.hygeia_optimal_resampling.argtypes = [vp, vp, vp, i, i, i, vp, vp, vp, vp, vp, vp]
-            lib.hygeia_optimal_resampling.restype = i
-            lib.hygeia_empty_launch.argtypes = [vp]
-            lib.hygeia_empty_launch.restype = i
-            lib.hygeia_cuda_error_string.argtypes = [i]
-            lib.hygeia_cuda_error_string.restype = ctypes.c_char_p
-            self.lib, self.build, self.launch = lib, info, lib.hygeia_optimal_resampling
-        return self.lib
-
-
-KERNEL = _Kernel()
+KERNEL = Kernel("optimal_resampling", _declare, error_string="hygeia_cuda_error_string")
 # The (N, M) that ``supports`` has taken: a hit needs no second verdict.
 _TAKEN = set()
-
-
-def _check(name, t, shape, dtype, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def optimal_resampling_cuda(log_weights, num_offspring, u_sys, u_mult) -> ResampleResult:
@@ -152,9 +108,9 @@ def optimal_resampling_cuda(log_weights, num_offspring, u_sys, u_mult) -> Resamp
         and u_mult.dtype is f32 and u_mult.device == dev and u_mult.shape == (U, M)
         and u_mult.is_contiguous()
     ):  # one of these names what is wrong
-        _check("log_weights", log_weights, (U, N), f32, dev)
-        _check("u_sys", u_sys, (U,), f32, dev)
-        _check("u_mult", u_mult, (U, M), f32, dev)
+        check_tensor("log_weights", log_weights, (U, N), f32, dev)
+        check_tensor("u_sys", u_sys, (U,), f32, dev)
+        check_tensor("u_mult", u_mult, (U, M), f32, dev)
 
     launch = KERNEL.launch or KERNEL.load().hygeia_optimal_resampling
     # empty_like of a checked input: about half the host time of
@@ -178,12 +134,8 @@ def optimal_resampling_cuda(log_weights, num_offspring, u_sys, u_mult) -> Resamp
         with torch.cuda.device(dev):
             rc = launch(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
-        msg = KERNEL.lib.hygeia_cuda_error_string(rc).decode()
-        raise RuntimeError(f"optimal_resampling kernel launch failed: {msg} ({rc})")
-    if torch.cuda.is_current_stream_capturing():
-        KERNEL.captured += 1  # recorded into a graph: counted at each replay
-    else:
-        KERNEL.launches += 1
+        KERNEL.failed(rc)
+    KERNEL.count()
     return ResampleResult(parents, log_c, bad, new_w, top_idx)
 
 

@@ -18,31 +18,19 @@ import ctypes
 
 import torch
 
-
-class _Kernel:
-    """The loaded library and the launch count. ``launches`` goes up by one
-    per kernel launch and nowhere else."""
-
-    def __init__(self):
-        self.lib = None
-        self.build = None
-        self.launches = 0
-
-    def load(self):
-        if self.lib is None:
-            from hygeia_tpu_torch.ops.build import load_library
-
-            lib, info = load_library("probe")
-            vp, i = ctypes.c_void_p, ctypes.c_int
-            lib.hygeia_probe.argtypes = [vp, vp, i, vp]
-            lib.hygeia_probe.restype = i
-            lib.hygeia_probe_error_string.argtypes = [i]
-            lib.hygeia_probe_error_string.restype = ctypes.c_char_p
-            self.lib, self.build = lib, info
-        return self.lib
+from hygeia_tpu_torch.ops.build import Kernel
 
 
-PROBE = _Kernel()
+def _declare(lib):
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.hygeia_probe.argtypes = [vp, vp, i, vp]
+    lib.hygeia_probe.restype = i
+    return lib.hygeia_probe
+
+
+# No site loop runs the probe: it counts its launches, and is not one of
+# build.KERNELS.
+PROBE = Kernel("probe", _declare, counted=False)
 
 
 def probe_plain(x):
@@ -63,8 +51,8 @@ def probe_cuda(x):
         rc = lib.hygeia_probe(x.data_ptr(), out.data_ptr(), x.numel(),
                               torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"probe kernel launch failed: {lib.hygeia_probe_error_string(rc).decode()} ({rc})")
-    PROBE.launches += 1
+        PROBE.failed(rc)
+    PROBE.count()
     return out
 
 

@@ -28,7 +28,7 @@ memory pool; the loop's graphs are freed when it ends. A failed capture
 or replay raises; nothing falls back to the eager route.
 
 The kernels' launch counts count executions: each kernel's wrapper
-(``cuda_resampling.KERNELS``: K1, K2, K3) counts the launches a capture
+(``build.KERNELS``: K1, K2, K3) counts the launches a capture
 records apart (``KERNEL.captured``), and each replay adds its graph's
 counts to their ``KERNEL.launches``.
 
@@ -50,7 +50,7 @@ import ctypes
 
 import torch
 
-from hygeia_tpu_torch.ops.cuda_resampling import KERNELS
+from hygeia_tpu_torch.ops.build import KERNELS
 from hygeia_tpu_torch.utils import spans
 
 # Sites a graph: JAX's filter unroll (hygeia_tpu/two_group/filter.py).
@@ -59,6 +59,12 @@ SITES_PER_GRAPH = 8
 # each stream it runs on (32 MiB on an H100), so a new stream a loop would
 # hold one more workspace a loop.
 _STREAMS = {}
+
+
+def _sync(device):
+    """Wait for ``device``'s work; nothing on the CPU."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _loop_stream(device):

@@ -54,7 +54,7 @@ import torch
 import torch.distributed as dist
 
 from hygeia_tpu_torch.ops.emissions import emission_log_prob_table, robust_emission_log_prob_table
-from hygeia_tpu_torch.ops.site_graphs import SITES_PER_GRAPH
+from hygeia_tpu_torch.ops.site_graphs import SITES_PER_GRAPH, _sync
 from hygeia_tpu_torch.two_group.backward import backward_simulation, backward_simulation_conditioned
 from hygeia_tpu_torch.two_group.filter import run_filter
 from hygeia_tpu_torch.two_group.proposal import num_children
@@ -139,11 +139,6 @@ def expected_launches(boundary, segment_size, buffer_size, blocks_per_window, ch
     win = blocks_per_window * segment_size
     W = min(max(1, 2 * buffer_size), win)
     return chunks * ((W - 1) + win) + reruns * win
-
-
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _all_gather(t, mesh):

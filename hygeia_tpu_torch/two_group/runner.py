@@ -8,7 +8,9 @@ the whole (T, N) history of a chunk of seeds is held on the device, then
 consumed by the backward pass; with ``streaming_blocks=W`` the chunk runs
 through two_group/streaming.py, which holds one W-site block. The seeds of
 a chunk run together as the leading unit axis U. Output files, names and
-dtypes are the JAX runner's.
+dtypes are the JAX runner's. The three entry points share one input stage
+(``_read_inputs``) and one writer for each kind of file
+(``_write_observations``, ``_write_unit_outputs``, ``_write_seed_files``).
 
 ``infer_segment``'s phases are spans (utils/spans.py): the call
 ``infer.call`` (chrom, batch, units, sites) and, inside it, ``infer.read``
@@ -37,7 +39,7 @@ import numpy as np
 import torch
 
 from hygeia_tpu_torch.ops.emissions import emission_log_prob_table, robust_emission_log_prob_table
-from hygeia_tpu_torch.ops.site_graphs import SITES_PER_GRAPH
+from hygeia_tpu_torch.ops.site_graphs import SITES_PER_GRAPH, _sync
 from hygeia_tpu_torch.two_group.backward import backward_simulation, smoothing_functionals
 from hygeia_tpu_torch.two_group.filter import HISTORY_BYTES_PER_PARTICLE_SITE, run_filter
 from hygeia_tpu_torch.two_group.model import make_params
@@ -109,11 +111,6 @@ def _generator(device, seeds, stream):
     return g
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _profile(trace_dir, device):
     """A torch.profiler context writing one trace into ``trace_dir`` when it
     exits (CPU activity, plus CUDA activity on a CUDA device), or a null
@@ -159,15 +156,65 @@ def _emission_tables(n_meth_control, n_total_control, n_meth_case, n_total_case,
     return table(n_meth_control, n_total_control), table(n_meth_case, n_total_case)
 
 
-def _write_unit_outputs(path, N, s, traj, split, regime, ret):
+def _read_inputs(data_dir, single_group_dir, chrom, R, segment=None):
+    """The INFER inputs of ``chrom``: (p_softmax, omega_logit_control,
+    positions, counts, window), counts the four (T, S) tables
+    (n_meth_control, n_total_control, n_meth_case, n_total_case).
+
+    With ``segment`` = (batch, segment_size, buffer_size) the rows are the
+    batch's window and ``window`` its (rows, return rows) as slices; a
+    batch past the end gives None, before any count is read. Without it the
+    rows are the whole chromosome and ``window`` is None. Raises where a
+    methylated count exceeds its total in the rows."""
+    theta = hio.read_theta(os.path.join(single_group_dir, f"theta_{chrom}.csv.gz"))
+    p_softmax, omega_logit_control = hio.theta_file_to_p_softmax(theta, R)
+    positions = hio.read_positions(os.path.join(data_dir, f"positions_{chrom}.txt.gz"))
+    rows, window = slice(None), None
+    if segment is not None:
+        window = segment_window(len(positions), *segment)
+        if window is None:
+            return None
+        window = tuple(slice(r.start, r.stop) for r in window)
+        rows = window[0]
+
+    def load(name):
+        return hio.read_count_matrix(os.path.join(data_dir, f"{name}_{chrom}.txt.gz"))[rows]
+
+    n_total_control = load("n_total_reads_control")
+    n_meth_control = load("n_methylated_reads_control")
+    n_total_case = load("n_total_reads_case")
+    n_meth_case = load("n_methylated_reads_case")
+    if np.any(n_total_case < n_meth_case) or np.any(n_total_control < n_meth_control):
+        raise ValueError("methylated read counts exceed total read counts")
+    return (p_softmax, omega_logit_control, positions[rows],
+            (n_meth_control, n_total_control, n_meth_case, n_total_case), window)
+
+
+def _write_observations(path, counts, positions, rows, submit=None):
+    """The five observation tables of ``rows`` of counts (as _read_inputs
+    gives them) and positions, into ``path``: written here, or handed to
+    ``submit`` (a pool's), whose futures come back."""
+    n_meth_control, n_total_control, n_meth_case, n_total_case = counts
+    write = submit or (lambda fn, *a: fn(*a))
+    return [write(hio.write_count_matrix, os.path.join(path, f"{name}.csv.gz"), arr) for name, arr in (
+        ("observations_control", n_meth_control[rows].astype(np.int16)),
+        ("observations_case", n_meth_case[rows].astype(np.int16)),
+        ("n_total_reads_control", n_total_control[rows].astype(np.int16)),
+        ("n_total_reads_case", n_total_case[rows].astype(np.int16)),
+        ("positions", positions[rows]),
+    )]
+
+
+def _write_unit_outputs(path, N, s, traj, split, regime, ret, level=0):
     """One unit's trajectory, split and regime archives, the JAX runner's
-    names and dtypes; traj (T, B, 5) int32, cut to the return range."""
+    names and dtypes; traj (T, B, 5) int32, cut to the return range. The
+    trajectories are stored (``level`` 0) or deflated at zlib ``level``."""
     for name, arr in (
         ("merged_state", traj[:, :, 0].astype(np.int16)[ret]),
         ("control_state", traj[:, :, 1:3].astype(np.int32)[ret]),
         ("case_state", traj[:, :, 3:5].astype(np.int32)[ret]),
     ):
-        hio.savez_fast(os.path.join(path, f"optimal_backward_particles_{name}_{N}_{s}"), arr, level=0)
+        hio.savez_fast(os.path.join(path, f"optimal_backward_particles_{name}_{N}_{s}"), arr, level=level)
     hio.savez_fast(os.path.join(path, f"optimal_split_probs_{N}_{s}"), split)
     hio.savez_fast(os.path.join(path, f"optimal_regime_probs_{N}_{s}"), regime)
 
@@ -178,6 +225,20 @@ def _functionals(traj, R, device):
     (a CUDA mean multiplies by a factor that depends on the shape)."""
     split, regime = smoothing_functionals(torch.from_numpy(traj).to(device), R)
     return split.cpu().numpy(), regime.cpu().numpy()
+
+
+def _functionals_numpy(traj, R):
+    """The split and regime probabilities of one unit's host (T, B, 5)
+    trajectories in numpy, the JAX meshed path's arithmetic, which the
+    meshed path keeps: ``_functionals`` takes the device's reductions, and
+    a CUDA mean multiplies by a reciprocal, which can move a last bit."""
+    split = (traj[:, :, 0] == 0).mean(axis=1).astype(np.float32)
+    regime = np.concatenate(
+        [np.stack([(traj[:, :, 2] == r).mean(axis=1) for r in range(R)], -1),
+         np.stack([(traj[:, :, 4] == r).mean(axis=1) for r in range(R)], -1)],
+        axis=-1,
+    ).astype(np.float32)
+    return split, regime
 
 
 def _flags(chrom, batch, segment_size, buffer_size, mu, sigma, minimum_duration, omega_case,
@@ -253,7 +314,7 @@ def _infer_chunk(params, E_c, E_k, M, B, R, chunk, device, streaming_blocks, tim
     _sync(device)
     t0 = time.perf_counter()
     if streaming_blocks:
-        tim = {}
+        tim = None if timings is None else {}
         traj, log_z, degen = streamed_inference(
             params, E_c, E_k, M, B, n_units=len(chunk),
             generator=_generator(device, chunk, 0),
@@ -358,48 +419,23 @@ def infer_segment(
     seeds = [seed] if np.isscalar(seed) else list(seed)
     with _profile(trace_dir, device), spans.span("infer.call", chrom=str(chrom), batch=batch, units=len(seeds)):
         with spans.span("infer.read"):
-            theta = hio.read_theta(os.path.join(single_group_dir, f"theta_{chrom}.csv.gz"))
-            p_softmax, omega_logit_control = hio.theta_file_to_p_softmax(theta, R)
-
-            positions = hio.read_positions(os.path.join(data_dir, f"positions_{chrom}.txt.gz"))
-            window = segment_window(len(positions), batch, segment_size, buffer_size)
-            if window is None:
+            inputs = _read_inputs(data_dir, single_group_dir, chrom, R, (batch, segment_size, buffer_size))
+            if inputs is None:
                 print("Batch index is too large for the chromosome")
                 return None
-            sl, ret = window
-            sl = slice(sl.start, sl.stop)
-            ret = slice(ret.start, ret.stop)
-
-            def _load(name):
-                return hio.read_count_matrix(os.path.join(data_dir, f"{name}_{chrom}.txt.gz"))[sl]
-
-            n_total_control = _load("n_total_reads_control")
-            n_meth_control = _load("n_methylated_reads_control")
-            n_total_case = _load("n_total_reads_case")
-            n_meth_case = _load("n_methylated_reads_case")
-            positions = positions[sl]
-            if np.any(n_total_case < n_meth_case) or np.any(n_total_control < n_meth_control):
-                raise ValueError("methylated read counts exceed total read counts")
-        T = n_total_control.shape[0]
+            p_softmax, omega_logit_control, positions, counts, (_, ret) = inputs
+        T = counts[0].shape[0]
         spans.annotate(sites=T)
 
         path = os.path.join(results_dir, f"chrom_{chrom}_{batch}")
         os.makedirs(path, exist_ok=True)
         with spans.span("infer.write"):
-            for name, arr in (
-                ("observations_control", n_meth_control.astype(np.int16)),
-                ("observations_case", n_meth_case.astype(np.int16)),
-                ("n_total_reads_control", n_total_control.astype(np.int16)),
-                ("n_total_reads_case", n_total_case.astype(np.int16)),
-                ("positions", positions),
-            ):
-                hio.write_count_matrix(os.path.join(path, f"{name}.csv.gz"), arr[ret])
+            _write_observations(path, counts, positions, ret)
 
         with spans.span("infer.tables", sync=device):
             params = _make_params(mu, sigma, p_softmax, omega_logit_control, omega_case, merge_log_prob,
                                   split_prob, minimum_duration, max(64, T + 1), device)
-            E_c, E_k = _emission_tables(n_meth_control, n_total_control, n_meth_case, n_total_case, params,
-                                        robust, robust_beta)
+            E_c, E_k = _emission_tables(*counts, params, robust, robust_beta)
 
         all_log_norm = {s: {} for s in seeds}
         times = {s: {} for s in seeds}
@@ -493,19 +529,8 @@ def infer_chromosome_streamed(
     device = torch.device(device)
     mu = np.asarray(mu, np.float64)
     R = len(mu)
-    theta = hio.read_theta(os.path.join(single_group_dir, f"theta_{chrom}.csv.gz"))
-    p_softmax, omega_logit_control = hio.theta_file_to_p_softmax(theta, R)
-    positions_all = hio.read_positions(os.path.join(data_dir, f"positions_{chrom}.txt.gz"))
-
-    def _load_full(name):
-        return hio.read_count_matrix(os.path.join(data_dir, f"{name}_{chrom}.txt.gz"))
-
-    n_total_control_all = _load_full("n_total_reads_control")
-    n_meth_control_all = _load_full("n_methylated_reads_control")
-    n_total_case_all = _load_full("n_total_reads_case")
-    n_meth_case_all = _load_full("n_methylated_reads_case")
-    if np.any(n_total_case_all < n_meth_case_all) or np.any(n_total_control_all < n_meth_control_all):
-        raise ValueError("methylated read counts exceed total read counts")
+    p_softmax, omega_logit_control, positions_all, counts_all, _ = _read_inputs(
+        data_dir, single_group_dir, chrom, R)
 
     seeds = [seed] if np.isscalar(seed) else list(seed)
     B = num_samples_backward
@@ -524,26 +549,11 @@ def infer_chromosome_streamed(
             window = segment_window(len(positions_all), batch, segment_size, buffer_size)
             if window is None:
                 continue
-            sl_r, ret_r = window
-            sl = slice(sl_r.start, sl_r.stop)
-            ret = slice(ret_r.start, ret_r.stop)
-            counts = {
-                "n_meth_control": n_meth_control_all[sl],
-                "n_total_control": n_total_control_all[sl],
-                "n_meth_case": n_meth_case_all[sl],
-                "n_total_case": n_total_case_all[sl],
-            }
+            sl, ret = (slice(r.start, r.stop) for r in window)
+            counts = tuple(c[sl] for c in counts_all)
             path = os.path.join(results_dir, f"chrom_{chrom}_{batch}")
             os.makedirs(path, exist_ok=True)
-            for name, arr in (
-                ("observations_control", counts["n_meth_control"].astype(np.int16)),
-                ("observations_case", counts["n_meth_case"].astype(np.int16)),
-                ("n_total_reads_control", counts["n_total_control"].astype(np.int16)),
-                ("n_total_reads_case", counts["n_total_case"].astype(np.int16)),
-                ("positions", positions_all[sl]),
-            ):
-                futures.append(pool.submit(
-                    hio.write_count_matrix, os.path.join(path, f"{name}.csv.gz"), arr[ret]))
+            futures += _write_observations(path, counts, positions_all[sl], ret, pool.submit)
             wins[batch] = (sl.stop - sl.start, ret, counts, path)
 
         all_log_norm = {b: {s: {} for s in seeds} for b in wins}
@@ -560,10 +570,7 @@ def infer_chromosome_streamed(
                                       max(64, t_w + 1), device)
                 emis = {}
                 for b in group_batches:
-                    c = wins[b][2]
-                    emis[b] = _emission_tables(c["n_meth_control"], c["n_total_control"],
-                                               c["n_meth_case"], c["n_total_case"], params, robust,
-                                               robust_beta)
+                    emis[b] = _emission_tables(*wins[b][2], params, robust, robust_beta)
                 cap = max(1, int(budget // bytes_per_streamed_unit(t_w, W, N, B)))
                 if max_units_per_call is not None:
                     cap = min(cap, int(max_units_per_call))
@@ -573,7 +580,7 @@ def infer_chromosome_streamed(
                     chunk_seeds = [s for _, s in chunk]
                     E_c = torch.stack([emis[b][0] for b, _ in chunk])
                     E_k = torch.stack([emis[b][1] for b, _ in chunk])
-                    tim = {}
+                    tim = None if timings is None else {}
                     t0 = time.perf_counter()
                     traj, log_z, degen = streamed_inference(
                         params, E_c, E_k, M, B, n_units=len(chunk),
@@ -671,21 +678,8 @@ def infer_chromosome_meshed(
     n_genome, n_seed_mesh = mesh_shape
     mesh = make_mesh(n_genome, n_seed_mesh, device=device)
 
-    theta = hio.read_theta(os.path.join(single_group_dir, f"theta_{chrom}.csv.gz"))
-    p_softmax, omega_logit_control = hio.theta_file_to_p_softmax(theta, R)
-    positions = hio.read_positions(os.path.join(data_dir, f"positions_{chrom}.txt.gz"))
+    p_softmax, omega_logit_control, positions, counts, _ = _read_inputs(data_dir, single_group_dir, chrom, R)
     T = len(positions)
-
-    def _load(name):
-        return hio.read_count_matrix(os.path.join(data_dir, f"{name}_{chrom}.txt.gz"))
-
-    n_total_control = _load("n_total_reads_control")
-    n_meth_control = _load("n_methylated_reads_control")
-    n_total_case = _load("n_total_reads_case")
-    n_meth_case = _load("n_methylated_reads_case")
-    if np.any(n_total_case < n_meth_case) or np.any(n_total_control < n_meth_control):
-        raise ValueError("methylated read counts exceed total read counts")
-
     params = _make_params(mu, sigma, p_softmax, omega_logit_control, omega_case, merge_log_prob,
                           split_prob, minimum_duration, max(64, T + 1), device)
     seeds = [seed] if np.isscalar(seed) else list(seed)
@@ -701,7 +695,7 @@ def infer_chromosome_meshed(
         _sync(device)
         t0 = time.perf_counter()
         out = sharded_two_group_inference(
-            mesh, params, n_meth_control, n_total_control, n_meth_case, n_total_case,
+            mesh, params, *counts,
             segment_size=segment_size, buffer_size=buffer_size, num_resampled_ancestors=M,
             num_samples_backward=B, seeds=seeds, base_key=rng_seed, weight_dtype=weight_dtype,
             boundary=boundary, robust_beta=robust_beta if robust else None,
@@ -724,14 +718,7 @@ def infer_chromosome_meshed(
             path = os.path.join(results_dir, f"chrom_{chrom}_{batch}")
             os.makedirs(path, exist_ok=True)
             rows = slice(lo, hi)
-            for name, arr in (
-                ("observations_control", n_meth_control.astype(np.int16)),
-                ("observations_case", n_meth_case.astype(np.int16)),
-                ("n_total_reads_control", n_total_control.astype(np.int16)),
-                ("n_total_reads_case", n_total_case.astype(np.int16)),
-                ("positions", positions),
-            ):
-                hio.write_count_matrix(os.path.join(path, f"{name}.csv.gz"), arr[rows])
+            _write_observations(path, counts, positions, rows)
             traj_b = traj[rows]  # (hi - lo, n_seeds * B, 5)
             if boundary == "exchange":
                 lz_row = log_z[min(batch // max(bpd, 1), log_z.shape[0] - 1)]
@@ -739,18 +726,8 @@ def infer_chromosome_meshed(
                 lz_row = log_z[min(batch, log_z.shape[0] - 1)]
             for i, s in enumerate(seeds):
                 tb = traj_b[:, i * B : (i + 1) * B]
-                for name, arr in (("merged_state", tb[:, :, 0].astype(np.int16)),
-                                  ("control_state", tb[:, :, 1:3].astype(np.int32)),
-                                  ("case_state", tb[:, :, 3:5].astype(np.int32))):
-                    hio.savez_fast(os.path.join(path, f"optimal_backward_particles_{name}_{N}_{s}"), arr)
-                split_s = (tb[:, :, 0] == 0).mean(axis=1).astype(np.float32)
-                regime_s = np.concatenate(
-                    [np.stack([(tb[:, :, 2] == r).mean(axis=1) for r in range(R)], -1),
-                     np.stack([(tb[:, :, 4] == r).mean(axis=1) for r in range(R)], -1)],
-                    axis=-1,
-                ).astype(np.float32)
-                hio.savez_fast(os.path.join(path, f"optimal_split_probs_{N}_{s}"), split_s)
-                hio.savez_fast(os.path.join(path, f"optimal_regime_probs_{N}_{s}"), regime_s)
+                # Trajectories deflated at level 1, as the JAX meshed path's.
+                _write_unit_outputs(path, N, s, tb, *_functionals_numpy(tb, R), slice(None), level=1)
                 all_log_norm[s].setdefault(batch, {})[N] = float(lz_row[i])
                 times[s].setdefault(batch, {})[N] = per_unit
 
@@ -770,13 +747,6 @@ def infer_chromosome_meshed(
     for batch in range(n_batches):
         path = os.path.join(results_dir, f"chrom_{chrom}_{batch}")
         for s in seeds:
-            with open(os.path.join(path, f"flags{s}.txt"), "w") as f:
-                for k, v in {**flags, "batch": batch, "seed": s}.items():
-                    print(f"--{k}={v}", file=f)
-            with open(os.path.join(path, f"log_normalizing_constants_optimal_{s}.txt"), "w") as f:
-                print(all_log_norm[s][batch], file=f)
-            with open(os.path.join(path, f"optimal_time_{s}.txt"), "w") as f:
-                print(times[s][batch], file=f)
-            with open(os.path.join(path, f"optimal_time_backward_{s}.txt"), "w") as f:
-                print({n: 0.0 for n in times[s][batch]}, file=f)
+            _write_seed_files(path, {**flags, "batch": batch}, s, all_log_norm[s][batch], times[s][batch],
+                              {n: 0.0 for n in times[s][batch]})
     return all_log_norm

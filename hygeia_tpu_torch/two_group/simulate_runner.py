@@ -33,10 +33,11 @@ import numpy as np
 import torch
 
 from hygeia_tpu_torch.ops import xla_f32
+from hygeia_tpu_torch.ops.site_graphs import _sync
 from hygeia_tpu_torch.two_group.backward import backward_simulation, smoothing_functionals
 from hygeia_tpu_torch.two_group.filter import run_filter
 from hygeia_tpu_torch.two_group.model import make_params
-from hygeia_tpu_torch.two_group.runner import _emission_tables, _generator, _sync
+from hygeia_tpu_torch.two_group.runner import _emission_tables, _generator
 from hygeia_tpu_torch.two_group.simulate import simulate
 from hygeia_tpu_torch.utils import io as hio
 

@@ -38,7 +38,7 @@ import time
 import numpy as np
 import torch
 
-from hygeia_tpu_torch.ops.site_graphs import SITES_PER_GRAPH
+from hygeia_tpu_torch.ops.site_graphs import SITES_PER_GRAPH, _sync
 from hygeia_tpu_torch.two_group.backward import backward_simulation_conditioned
 from hygeia_tpu_torch.two_group.filter import run_filter
 
@@ -59,11 +59,6 @@ def launches_per_call(T, block_size):
         return T - 1
     len_last = bounds[-1][1] - bounds[-1][0]
     return 2 * T - len_last - 2
-
-
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def streamed_inference(
@@ -91,7 +86,8 @@ def streamed_inference(
     seconds (lists "fwd", "rev", "pull": forward block, re-run + backward,
     device-to-host copy) and "rerun_equals_checkpoint": for every block but
     the last, whether its re-run's final state equals its checkpoint bit
-    for bit. ``sites_per_graph``: the site loops' sites a CUDA graph on the
+    for bit (compared only then: the comparison waits for the device).
+    ``sites_per_graph``: the site loops' sites a CUDA graph on the
     card (0: eagerly, only to compare the two)."""
     U = int(n_units)
     M, B = num_resampled_ancestors, num_samples_backward
@@ -99,6 +95,7 @@ def streamed_inference(
     T = emission_control.shape[-2]
     bounds = block_bounds(T, block_size)
     n_blocks = len(bounds)
+    compare = timings is not None
     timings = {} if timings is None else timings
     for k in ("fwd", "rev", "pull", "rerun_equals_checkpoint"):
         timings.setdefault(k, [])
@@ -134,13 +131,13 @@ def streamed_inference(
         t0 = time.perf_counter()
         generator.set_state(gen_states[b])
         res = run_block(b, ckpts[b - 1] if b else None, True)
-        if b < n_blocks - 1:
+        if compare and b < n_blocks - 1:
             lw_ck, parts_ck = ckpts[b]
             same = torch.equal(res.log_weights[:, -1], lw_ck) and all(
                 torch.equal(f[:, -1].to(torch.int32), parts_ck[:, i]) for i, f in enumerate(res.particles)
             )
             timings["rerun_equals_checkpoint"].insert(0, bool(same))
-            ckpts[b] = None
+        ckpts[b] = None
         traj = backward_simulation_conditioned(
             params, res.log_weights, res.particles, term, term is not None,
             num_simulations=B, generator=backward_generator, sites_per_graph=sites_per_graph,
