@@ -227,14 +227,35 @@ launch a site; then timed at U = 2 and U = 32 as K2 is, beside the shape's
 bandwidth bound, with the plain version's time (the draws, common to
 both, left out).
 
+Phase 3e (after 3d): the engine-step kernel K4 (``csrc/engine_step.cu``)
+through the engine's K4 route against its plain version,
+``_Engine._step_plain``, from the same state and K1 outputs at the theta
+cell's widths (N = 250, S = 128, R = 6, D = 36, u = 3, both estimates,
+updates every 200 sites) at U = 1 (one table) and U = 32 (a table a
+unit), at a steady site, an update site and the last site of a 600-site
+run stepped through K4 from the start: the particles, insertion slots,
+finalisations and counts equal, every value within 2e-6 + 2e-5 s (s the
+size it is summed from: its own |value|, or a row of psi's or a column of
+phi's largest over the particles; f32 sums in another order), three
+launches a site; then timed at U = 1 and U = 32: a site step through K4
+and through the plain version eagerly (CUDA events), each and each stage
+as a graph of 20 steps replayed, and whole steady sites (the draws, K1,
+the step, the trace row, the index) 8 a graph through either route with
+their graph nodes, beside the shape's bandwidth bound.
+
 Every two-group phase resets the kernels' launch counts and checks that
 K2 launched once a two-group filter site: as often as K1 (every filter
 site is K1 then K2), less the theta stage's launches in the pipeline
 phase; and that K3 launched once a backward site, counted from the calls
 of the backward pass (T - 1 a call, and one more for a conditioned
 terminal draw: ``count_backward_sites``). Every single-group phase checks
-that neither launched. The kernels line gives K2's and K3's launches by
-path.
+that neither launched. Every phase checks that K4 launched once a stage
+(three with both estimates) at each single-group engine site at capacity
+on the card, and counts the growth sites, which take the plain
+composition, from the sites each engine call runs
+(``count_engine_sites``): the theta, blocked, pipeline, single-group
+pipeline, simulate_data and graphs phases run engines. The kernels line
+gives K2's, K3's and K4's launches by path, and the growth sites.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc;
@@ -294,6 +315,12 @@ K2_LAUNCHES = {}
 K3_LAUNCHES = {}
 # The backward sites drawn since ``reset_launches`` (``count_backward_sites``).
 BACKWARD_SITES = [0]
+# K4's launches and the engine's growth sites on the card by run over the
+# whole smoke, for the kernels line; and since ``reset_launches``, what the
+# engine sites run owe K4 and the growth sites (``count_engine_sites``).
+K4_LAUNCHES = {}
+PLAIN_ENGINE_SITES = {}
+ENGINE_SITES = {"k4_launches": 0, "plain": 0}
 
 
 def count_backward_sites():
@@ -317,33 +344,70 @@ def count_backward_sites():
         mod.backward_simulation_conditioned = counted
 
 
+def count_engine_sites():
+    """Wrap the single-group engine's ``_run_sites`` so that each call on
+    the card adds what its sites owe K4 to ENGINE_SITES: a site t at
+    capacity (min(R t, N) + R > N) launches it once a stage (WEIGHTS,
+    SMOOTH with the regime pass, GRADIENT with the parameter estimate); a
+    growth site takes the plain composition. Every engine on the card must
+    be on K4's route."""
+    from hygeia_tpu_torch.single_group import engine
+
+    orig = engine._run_sites
+    if getattr(orig, "counts_sites", False):
+        return
+
+    def counted(eng, loop, start, stop, draws):
+        if eng.device.type == "cuda":
+            check(eng.k4, f"single-group engine on {eng.device} (N={eng.N}, {eng.dtype}) is off K4's route")
+            cfg = eng.config
+            at_capacity = sum(min(eng.R * t, eng.N) + eng.R > eng.N for t in range(start, stop))
+            ENGINE_SITES["k4_launches"] += at_capacity * (1 + cfg.estimate_regimes + cfg.estimate_parameters)
+            ENGINE_SITES["plain"] += stop - start - at_capacity
+        return orig(eng, loop, start, stop, draws)
+
+    counted.counts_sites = True
+    engine._run_sites = counted
+
+
 def reset_launches():
-    """The kernels' launch counts (K1, K2, K3) and the backward sites to 0,
-    before a run."""
-    from hygeia_tpu_torch.ops import cuda_backward_step, cuda_filter_step, cuda_resampling
+    """The kernels' launch counts (K1, K2, K3, K4), the backward sites and
+    the engine sites to 0, before a run."""
+    from hygeia_tpu_torch.ops import cuda_backward_step, cuda_engine_step, cuda_filter_step, cuda_resampling
 
     cuda_resampling.KERNEL.launches = cuda_filter_step.KERNEL.launches = cuda_backward_step.KERNEL.launches = 0
+    cuda_engine_step.KERNEL.launches = 0
     BACKWARD_SITES[0] = 0
+    ENGINE_SITES.update(k4_launches=0, plain=0)
 
 
-def launches_since_reset(path=None, two_group_sites=None):
+def launches_since_reset(path=None, two_group_sites=None, run=None):
     """K1's launches since ``reset_launches``. With ``path``, a run with a
     two-group stage: K2 must have launched once a two-group filter site,
     ``two_group_sites`` (default: as often as K1, for a run without a
     single-group stage), K3 once a backward site, and their counts are
     added to K2_LAUNCHES[path] and K3_LAUNCHES[path]. Without, a
-    single-group run: neither may have launched."""
-    from hygeia_tpu_torch.ops import cuda_backward_step, cuda_filter_step, cuda_resampling
+    single-group run (``run`` names it): neither may have launched. Either
+    way K4 must have launched what the engine sites run owe it
+    (``count_engine_sites``); its launches and the growth sites are added
+    to K4_LAUNCHES and PLAIN_ENGINE_SITES under the run's name."""
+    from hygeia_tpu_torch.ops import cuda_backward_step, cuda_engine_step, cuda_filter_step, cuda_resampling
 
     k1, k2 = cuda_resampling.KERNEL.launches, cuda_filter_step.KERNEL.launches
     k3, sites = cuda_backward_step.KERNEL.launches, BACKWARD_SITES[0]
+    k4 = cuda_engine_step.KERNEL.launches
+    label = path or run or "single group"
     want = (k1 if two_group_sites is None else two_group_sites) if path else 0
-    check(k2 == want, f"{path or 'single group'}: K2 launched {k2} times, K1 {k1}, expected {want}")
-    check(k3 == sites and (path or sites == 0),
-          f"{path or 'single group'}: K3 launched {k3} times for {sites} backward sites")
+    check(k2 == want, f"{label}: K2 launched {k2} times, K1 {k1}, expected {want}")
+    check(k3 == sites and (path or sites == 0), f"{label}: K3 launched {k3} times for {sites} backward sites")
+    check(k4 == ENGINE_SITES["k4_launches"],
+          f"{label}: K4 launched {k4} times, its engine sites at capacity owe it {ENGINE_SITES['k4_launches']}")
     if path:
         K2_LAUNCHES[path] = K2_LAUNCHES.get(path, 0) + k2
         K3_LAUNCHES[path] = K3_LAUNCHES.get(path, 0) + k3
+    if k4 or ENGINE_SITES["plain"]:
+        K4_LAUNCHES[label] = K4_LAUNCHES.get(label, 0) + k4
+        PLAIN_ENGINE_SITES[label] = PLAIN_ENGINE_SITES.get(label, 0) + ENGINE_SITES["plain"]
     return k1
 
 
@@ -831,6 +895,224 @@ def backward_step_phase(device, seed=0):
     return checks, {"two_group_cell": timed(2), "two_group_u32": timed(32)}
 
 
+def _k4_engine(U, T, device, seed):
+    """An _Engine on the card at the theta cell's widths (N = 250, S = 128,
+    R = 6, D = 36, u = 3, both estimates, updates every 200 sites), one
+    emission table a unit of synthetic counts of depth ~20."""
+    import numpy as np
+    import torch
+    from hygeia_tpu_torch.ops.emissions import emission_log_prob_table
+    from hygeia_tpu_torch.single_group.engine import EngineConfig, _Engine
+    from hygeia_tpu_torch.single_group.model import make_model, parameters_to_theta
+
+    model = make_model(list(MU), list(SIGMA), 3, np.full(R, 2.0), device=device)
+    p = np.full((R, R), 1.0 / (R - 1))
+    np.fill_diagonal(p, 0.0)
+    theta = parameters_to_theta(p, [0.995, 0.975, 0.95, 0.925, 0.9, 0.9])
+    rng = np.random.default_rng(seed + U)
+    tables = []
+    for _ in range(U):
+        n = rng.poisson(20, size=(T, 2))
+        y = rng.binomial(n, np.repeat(rng.uniform(0, 1, T // 50), 50)[:, None])
+        tables.append(emission_log_prob_table(y, n, model.alpha, model.beta))
+    cfg = EngineConfig(n_particles_max=SG_N, estimate_regimes=True, estimate_parameters=True, steps_per_update=200)
+    return _Engine(model, theta, torch.stack(tables), cfg, U, torch.float32)
+
+
+def _k4_gaps(got, want, t0, T):
+    """{value: (max |got - want|, the largest |got - want| / (2e-6 + 2e-5 s))}
+    over the finite entries of a site step's values through K4 (got) and
+    the plain version (want), s the size each is summed from: its own
+    |value|, or a row of psi's or a column of phi's largest over the
+    particles (the score and the ADAM moments by phi's columns, theta and
+    the tables by their rows). The non-finite entries must be equal."""
+    import torch
+
+    row = lambda x: x.abs().amax(-1, keepdim=True)
+    phi_col = want["phi"].abs().amax(1)
+    scales = {"psi": row(want["psi"]), "phi": want["phi"].abs().amax(1, keepdim=True), "score": phi_col,
+              "grad_prev": phi_col, "adam_m": phi_col, "adam_v": phi_col**2, "theta": row(want["theta"]),
+              "haz": row(want["haz"]), "trace": row(want["trace"][:, :t0 + 1])}
+    gaps = {}
+    for k in ("w", "shifts", "psi", "phi", "score", "theta", "grad_prev", "adam_m", "adam_v", "haz", "log_P", "P",
+              "trace", "out"):
+        a, b = got[k].double(), want[k].double()
+        if k == "trace":  # rows past t0 are not written yet
+            a, b = a[:, :t0 + 1], b[:, :t0 + 1]
+        if k == "out":  # the sentinel row T is never read
+            a, b = a[:, :T], b[:, :T]
+        fa, fb = torch.isfinite(a), torch.isfinite(b)
+        check(torch.equal(fa, fb) and torch.equal(a[~fa].nan_to_num(0.0), b[~fb].nan_to_num(0.0)),
+              f"K4: the non-finite entries of {k} differ from the plain version's")
+        if not bool(fa.any()):
+            gaps[k] = (0.0, 0.0)
+            continue
+        size = b.abs() if k not in scales else scales[k].double().expand_as(b)
+        err = (a - b).abs()[fa]
+        gaps[k] = (float(err.max()), float((err / (2e-6 + 2e-5 * size[fa])).max()))
+    return gaps
+
+
+def _graph_us(fn, calls, stream, generators=(), replays=30):
+    """Microseconds a call of ``fn``: ``calls`` calls captured into one
+    graph on ``stream`` (drawing from ``generators``), replayed ``replays``
+    times behind CUDA events; the median, and the graph's nodes a call."""
+    import statistics
+
+    import torch
+    from hygeia_tpu_torch.ops.site_graphs import captured_nodes
+
+    with torch.cuda.stream(stream):
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            graph.register_generator_state(gen)
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(calls):
+                fn()
+            nodes = captured_nodes(stream)
+        graph.replay()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(replays):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record(stream)
+            graph.replay()
+            b.record(stream)
+            b.synchronize()
+            out.append(a.elapsed_time(b) * 1e3 / calls)
+    return statistics.median(out), nodes / calls
+
+
+def engine_step_phase(device, seed=0):
+    """K4 against its plain version, ``_Engine._step_plain``, from the same
+    state and K1 outputs (phase 3e), then timed at U = 1 and U = 32.
+    Returns ({label: {value: (max abs err, share of its tolerance)}},
+    {label: the shape's times})."""
+    import torch
+    from hygeia_tpu_torch.ops import cuda_engine_step as k4
+    from hygeia_tpu_torch.ops.cuda_resampling import optimal_resampling
+    from hygeia_tpu_torch.single_group.engine import _site_uniforms
+
+    T = 600
+    snapshot = lambda eng: {**{k: v.clone() for k, v in eng.state.items() if torch.is_tensor(v)},
+                            "haz": eng.haz.clone(), "log_P": eng.log_P.clone(), "P": eng.P.clone(),
+                            "t_dev": eng.t_dev.clone()}
+
+    def restore(eng, snap):
+        for k, v in snap.items():
+            (eng.state[k] if k in eng.state else getattr(eng, k)).copy_(v)
+
+    checks = {}
+    for U in (1, 32):
+        eng = _k4_engine(U, T, device, seed)
+        check(eng.k4, f"K4 U={U}: the engine on the card is off K4's route")
+        g = torch.Generator(device=device).manual_seed(seed + 11)
+        t = 1
+        for t0, site in ((321, "steady"), (400, "update"), (T - 1, "last")):
+            while t < t0:
+                eng.step(t, *_site_uniforms(U, eng.M, g, device))
+                t += 1
+            draws = _site_uniforms(U, eng.M, g, device)
+            before = snapshot(eng)
+            launches = k4.KERNEL.launches
+            eng.step(t0, *draws)
+            check(k4.KERNEL.launches == launches + 3, f"K4 U={U} {site}: {k4.KERNEL.launches - launches} launches")
+            got = snapshot(eng)
+            restore(eng, before)
+            eng.k4 = False
+            eng.step(t0, *draws)
+            eng.k4 = True
+            want = snapshot(eng)
+            check(k4.KERNEL.launches == launches + 3, f"K4 U={U} {site}: the plain version launched K4")
+            for k in ("d", "r", "psi_time", "psi_valid", "spill", "adam_iter", "t_dev"):
+                check(torch.equal(got[k], want[k]), f"K4 U={U} {site}: {k} differs from the plain version's")
+            check(torch.equal(got["out_valid"][:, :T], want["out_valid"][:, :T]),
+                  f"K4 U={U} {site}: the finalised rows differ from the plain version's")
+            gaps = _k4_gaps(got, want, t0, T)
+            worst = max(gaps, key=lambda k: gaps[k][1])
+            check(gaps[worst][1] <= 1, f"K4 U={U} {site}: {worst} off the plain version by {gaps[worst][0]:.3g}, "
+                                       f"{gaps[worst][1]:.2f} of its tolerance")
+            checks[f"u{U}_{site}"] = gaps
+            restore(eng, got)  # go on from K4's state
+            t = t0 + 1
+    print("K4 vs plain: U=1 and U=32 at N=250 S=128 R=6 D=36, a steady, an update and the last site: particles, "
+          "slots, finalisations and counts equal; max |err| " + ", ".join(
+              f"{label} {max(v[0] for v in gaps.values()):.3g} ({max(v[1] for v in gaps.values()):.2f} of "
+              f"tolerance)" for label, gaps in checks.items()))
+
+    def timed(U):
+        """With one fixed draw of K1's outputs at site t0 = 301 of an
+        engine stepped through K4 so far: device_ms and plain_device_ms, a
+        site step through K4 (its three stages) and through the plain
+        version, 20 steps a graph replayed (median of 30 replays);
+        stages_device_ms, each stage alone so; ms and plain_ms, eagerly
+        through the engine (CUDA events over 100 and 20 calls, best of 3);
+        site_device_ms and site_plain_device_ms, whole steady sites (the
+        draws, K1, the step, the trace row, the index) 8 a graph, with
+        their graph nodes a site. Each restarts from the same state.
+        bound_ms: the bytes K4 must move (psi, phi and the particles read
+        and written once; K1's outputs and the table entries read once)
+        over 3.35 TB/s."""
+        t0 = 301
+        eng = _k4_engine(U, 2000, device, seed)
+        g = torch.Generator(device=device).manual_seed(seed + 1)
+        for t in range(1, t0):
+            eng.step(t, *_site_uniforms(U, eng.M, g, device))
+        torch.cuda.synchronize(device)
+        stream = torch.cuda.Stream(device)
+        res = optimal_resampling(eng.state["w"], eng.M, *_site_uniforms(U, eng.M, g, device))
+        snap = snapshot(eng)
+        k4_step = lambda: eng._step_k4(t0, res)
+        plain_step = lambda: eng._step_plain(t0, res, None)
+        out = {}
+        us, out["nodes"] = _graph_us(k4_step, 20, stream)
+        out["device_ms"] = us / 1e3
+        restore(eng, snap)
+        out["stages_device_ms"] = {}
+        for name, stage in (("weights", k4.WEIGHTS), ("smooth", k4.SMOOTH), ("gradient", k4.GRADIENT)):
+            launch = lambda stage=stage: k4.engine_step_cuda(
+                stage, eng.state, res, (eng.haz, eng.log_P, eng.P), eng.emissions, eng.k4_ws, eng.t_dev,
+                min_duration=eng.model.u, epsilon=eng.config.epsilon)
+            out["stages_device_ms"][name] = _graph_us(launch, 20, stream)[0] / 1e3
+            restore(eng, snap)
+        us, out["plain_nodes"] = _graph_us(plain_step, 20, stream)
+        out["plain_device_ms"] = us / 1e3
+        restore(eng, snap)
+        out["ms"] = min(_events_ms(device, k4_step, 100, False) for _ in range(3))
+        restore(eng, snap)
+        out["plain_ms"] = min(_events_ms(device, plain_step, 20, False) for _ in range(3))
+        t = t0 + 1  # a steady site; a graph of 8 replays sites t .. t + 7 from the same index
+        for name, use in (("site", True), ("site_plain", False)):
+            restore(eng, snap)
+            eng.k4 = use
+            base = eng.t_dev.clone()
+
+            def sites():
+                eng.t_dev.copy_(base)
+                for _ in range(8):
+                    eng.step(t, *_site_uniforms(U, eng.M, g, device))
+
+            us, nodes = _graph_us(sites, 1, stream, (g,))
+            out[f"{name}_device_ms"], out[f"{name}_nodes"] = us / 8e3, (nodes - 1) / 8
+        eng.k4 = True
+        N, S, D, M = eng.N, eng.S, eng.D, eng.M
+        n_bytes = U * (2 * 4 * S * R * N + 2 * 4 * N * D + 2 * 20 * N + 12 * M + 12 * N)
+        out.update(bytes=n_bytes, bound_ms=1e3 * n_bytes / 3.35e12, bound_by="bytes")
+        print(f"K4 at U={U} N={N} S={S} R={R} D={D}: on the card, replayed in a graph, "
+              f"{1e3 * out['device_ms']:.2f} us a site step (" + ", ".join(
+                  f"{k} {1e3 * v:.2f}" for k, v in out["stages_device_ms"].items())
+              + f" alone; plain {1e3 * out['plain_device_ms']:.2f} us, {out['plain_nodes']:.0f} nodes); eagerly "
+              f"{out['ms']:.4f} ms (plain {out['plain_ms']:.4f}); a whole steady site "
+              f"{1e3 * out['site_device_ms']:.2f} us in {out['site_nodes']:.1f} nodes (plain route "
+              f"{1e3 * out['site_plain_device_ms']:.2f} us in {out['site_plain_nodes']:.1f}); bound "
+              f"{1e6 * out['bound_ms']:.1f} ns ({n_bytes} bytes, by {out['bound_by']})")
+        return out
+
+    return checks, {"single_group_cell": timed(1), "single_group_u32": timed(32)}
+
+
 # ---------------------------------------------------------------- hazard ----
 
 def hazard_phase(device):
@@ -1056,7 +1338,7 @@ def single_group_phase(device, root, regime):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
-    launches = launches_since_reset()
+    launches = launches_since_reset(run="theta")
 
     names = {
         "regime_probs_1.csv": ["genomic_position"] + [f"regime_{i + 1}" for i in range(R)],
@@ -1086,6 +1368,11 @@ def single_group_phase(device, root, regime):
     check(np.allclose(probs.sum(1), 1, atol=1e-4), "single group: regime probabilities do not sum to 1")
     # One launch a site resamples every unit; the first site resamples nothing.
     check(launches == T - 1, f"single group: kernel launched {launches} times for T={T} sites")
+    # K4 three times a site at capacity; the (N - R) // R growth sites plain.
+    growth = (SG_N - R) // R
+    check(K4_LAUNCHES["theta"] == 3 * (T - 1 - growth) and PLAIN_ENGINE_SITES["theta"] == growth,
+          f"single group: K4 launched {K4_LAUNCHES['theta']} times, {PLAIN_ENGINE_SITES['theta']} growth sites, "
+          f"for T={T} sites")
     level = probs @ np.asarray(SG_MU)
     mu_true = np.asarray(MU)[regime]
     hi, lo = float(level[mu_true >= 0.8].mean()), float(level[mu_true <= 0.2].mean())
@@ -1413,7 +1700,7 @@ def blocked_phase(device, root, regime, block_size, halo, warmup_sites, seed=0):
         model, theta0.numpy(), E, cfg, block_size=block_size, halo=halo, warmup_sites=warmup_sites,
         generator=torch.Generator(device=device).manual_seed(seed), timings=tim)
     wall = time.perf_counter() - t0
-    launches = launches_since_reset()
+    launches = launches_since_reset(run="blocked")
     n_blocks, win, Tw = -(-T // block_size), block_size + halo, min(T, warmup_sites)
     check(n_blocks >= 2 and T >= win, f"blocked: {T} sites make {n_blocks} blocks of {block_size}")
     want = (Tw - 1) + (win - 1)
@@ -1617,7 +1904,7 @@ def sg_pipeline_phase(device, root, n_sites):
     with contextlib.redirect_stdout(io.StringIO()):
         cli.main(argv)
     wall = time.perf_counter() - t0
-    launches = launches_since_reset()
+    launches = launches_since_reset(run="single_group_pipeline")
 
     T = n_sites
     check(launches == 2 * (T - 1), f"single-group pipeline: kernel launched {launches} times, 2 (T - 1) = "
@@ -1666,7 +1953,7 @@ def sg_pipeline_phase(device, root, n_sites):
     with contextlib.redirect_stdout(io.StringIO()):
         cli.main(argv)
     wall2 = time.perf_counter() - t1
-    resume_launches = launches_since_reset()
+    resume_launches = launches_since_reset(run="single_group_pipeline_resume")
     rows2 = [r.split("\t") for r in open(os.path.join(out, "trace.tsv")).read().splitlines()[1:]]
     check(resume_launches == 0 and rows2 and all(r[3] == "True" for r in rows2),
           f"single-group pipeline: the resumed run ran stages again ({resume_launches} launches, {rows2})")
@@ -1722,7 +2009,7 @@ def sg_pipeline_phase(device, root, n_sites):
                                 mu=MU, sigma=SIGMA, u=3, n_steps_without_parameter_update=50,
                                 learning_rate_factor=0.2)
     learn_s = time.perf_counter() - t3
-    launches2 = launches_since_reset()
+    launches2 = launches_since_reset(run="single_group_pipeline_samples")
     check(launches2 == 2 * (T - 1), f"single-group pipeline (samples=): kernel launched {launches2} times, "
                                     f"2 (T - 1) = {2 * (T - 1)}")
     learned = {}
@@ -2005,7 +2292,7 @@ def simulate_data_phase(device, root, n_sites, replicates=8, seed=0):
                     "--estimate_regime_probabilities", "--regime_probabilities_csv_file", f["probs"],
                     "--progress_every", "0", "--device", str(device)])
     est_s = time.perf_counter() - t0
-    est_launches = launches_since_reset()
+    est_launches = launches_since_reset(run="simulate_data")
     check(est_launches == n_sites - 1, f"simulate_data: the regime pass launched {est_launches} times")
     _cols, probs = hio.read_headed_table(f["probs"])
     recovery = float(np.mean(probs[:, 1:].argmax(1) == regime))
@@ -2018,7 +2305,7 @@ def simulate_data_phase(device, root, n_sites, replicates=8, seed=0):
     log_z = approximate_log_normalizing_constant(n_replicates=replicates, n_methylated_reads=meth.T,
                                                  n_total_reads=total.T, device=device, rng_seed=seed)
     rep_s = time.perf_counter() - t0
-    rep_launches = launches_since_reset()
+    rep_launches = launches_since_reset(run="replicates")
     check(rep_launches == n_sites - 1, f"replicates: launched {rep_launches} times for {replicates} replicates")
     check(log_z.shape == (replicates,) and bool(np.all(np.isfinite(log_z))), f"replicates: logZ {log_z}")
     stats = {"sites": n_sites, "simulate_s": sim_s, "regime_pass_s": est_s, "recovery": recovery,
@@ -2506,7 +2793,8 @@ def graph_phase(device, root, data_dir, sg_dir, segment_size, buffer_size, strea
                 res = run(out, K)
             _sync(device)
             wall = time.perf_counter() - t0
-            launches = launches_since_reset(None if name == "engine" else f"graphs_{name}_{label}")
+            launches = launches_since_reset(None if name == "engine" else f"graphs_{name}_{label}",
+                                            run=f"graphs_{name}_{label}")
             got[label] = {"out": out, "res": res, "wall_s": wall, "launches": launches,
                           "text": text.getvalue(), "classes": rec and _engine_classes(rec),
                           "peak": torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None}
@@ -2887,7 +3175,7 @@ def main(argv=None):
     card = card_line()
     print(card)
 
-    from hygeia_tpu_torch.ops import build, cuda_backward_step, cuda_filter_step
+    from hygeia_tpu_torch.ops import build, cuda_backward_step, cuda_engine_step, cuda_filter_step
     from hygeia_tpu_torch.ops.cuda_resampling import KERNEL
     from hygeia_tpu_torch.ops.probe import PROBE
 
@@ -2897,6 +3185,7 @@ def main(argv=None):
     PROBE.load()
     cuda_filter_step.KERNEL.load()
     cuda_backward_step.KERNEL.load()
+    cuda_engine_step.KERNEL.load()
     print(f"build: {[s.name for s in build.sources()]} in {time.perf_counter() - t0:.2f} s, one nvcc each in "
           f"parallel: " + ", ".join(f"{k} {v.seconds:.2f} s" for k, v in builds.items()))
     for name, info in builds.items():
@@ -2908,7 +3197,9 @@ def main(argv=None):
     pr_stats, pr_launches = probe_phase(device)
     k2_err, k2_times = filter_step_phase(device)
     k3_checks, k3_times = backward_step_phase(device)
+    k4_checks, k4_times = engine_step_phase(device)
     count_backward_sites()
+    count_engine_sites()
     onsets = hazard_phase(device)
     offpath = offpath_phase(device)
 
@@ -3059,6 +3350,26 @@ def main(argv=None):
         "library_ms": None,
         "library": "no single PyTorch call computes it",
         "by_shape": k3_times,
+    }, {
+        "name": "engine_step",
+        "route": "cuda",
+        "source": "hygeia_tpu_torch/csrc/engine_step.cu",
+        # No TPU kernel: the JAX package composes the step from XLA ops.
+        "replaces": "hygeia_tpu/single_group/engine.py",
+        # Every run's K4 launches, three a single-group engine site at
+        # capacity on the card, each checked against its sites; the growth
+        # sites take the plain composition.
+        "launches": sum(K4_LAUNCHES.values()),
+        "launches_by_path": K4_LAUNCHES,
+        "plain_sites_by_path": PLAIN_ENGINE_SITES,
+        "checks": k4_checks,
+        "max_abs_err": max(v[0] for gaps in k4_checks.values() for v in gaps.values()),
+        "shape": f"U=1 N={SG_N} S=128 R={R} D=36 (the theta cell's)",
+        **{k: k4_times["single_group_cell"][k] for k in ("ms", "plain_ms", "device_ms", "plain_device_ms", "bytes",
+                                                          "bound_ms", "bound_by")},
+        "library_ms": None,
+        "library": "no single PyTorch call computes it",
+        "by_shape": k4_times,
     }], "card": card, "hazard_onsets": onsets, "single_group": sg_stats, "slice": stats,
         "streamed": st_stats, "chromosome": ch_stats, "robust": rb_stats, "blocked": bl_stats,
         "pipeline": pl_stats, "single_group_pipeline": sgp_stats, "marginal": mg_stats, "offpath": offpath,

@@ -132,8 +132,8 @@ def load_library(name):
 
 
 # Every kernel counted through replays (K1 in ops/cuda_resampling.py, K2 in
-# ops/cuda_filter_step.py, K3 in ops/cuda_backward_step.py), in the order
-# made: ops/site_graphs.py adds each one's captured launches to its count
+# ops/cuda_filter_step.py, K3 in ops/cuda_backward_step.py, K4 in
+# ops/cuda_engine_step.py), in the order made: ops/site_graphs.py adds each one's captured launches to its count
 # at every replay.
 KERNELS = []
 

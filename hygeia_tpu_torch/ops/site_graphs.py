@@ -28,7 +28,7 @@ memory pool; the loop's graphs are freed when it ends. A failed capture
 or replay raises; nothing falls back to the eager route.
 
 The kernels' launch counts count executions: each kernel's wrapper
-(``build.KERNELS``: K1, K2, K3) counts the launches a capture
+(``build.KERNELS``: K1, K2, K3, K4) counts the launches a capture
 records apart (``KERNEL.captured``), and each replay adds its graph's
 counts to their ``KERNEL.launches``.
 

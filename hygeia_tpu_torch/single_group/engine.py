@@ -42,7 +42,18 @@ per-step emitted rows give the same values and ``regime_valid``.
 
 Every site calls the optimal resampler (ops/cuda_resampling) in float32 on
 the previous weights, M_cap = N - R offspring: the CUDA kernel for CUDA
-tensors, the plain version for CPU tensors.
+tensors, the plain version for CPU tensors. What follows it is one of two
+routes. On a CUDA card every site at capacity (steady, update, frozen,
+the sites where entries finalise and the last site, graphed or eager)
+takes K4 (ops/cuda_engine_step.py): three launches, WEIGHTS, then SMOOTH
+on a second stream beside GRADIENT (which ``_estimate`` launches), in
+place of ~220 small kernels; the ADAM step and the tables' rebuild stay
+PyTorch. K4 writes only the rows of entries that finalise, never the
+sentinel row T. A CUDA engine that K4 cannot take (weights other than
+float32, shapes beyond its bounds) raises when it is made. The growth
+phase (the first (N - R) // R sites, 40 at N = 250) and every site on the
+CPU take the plain composition (``_step_plain``). On the card a graphed
+site and its eager run give the same bits either way.
 
 Per-unit inputs (the blocked theta stage and the multi-chromosome batch):
 an emission table per unit (U, T, R), a warm ADAM state per unit
@@ -61,6 +72,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from hygeia_tpu_torch.ops import cuda_engine_step as k4
 from hygeia_tpu_torch.ops.cuda_resampling import optimal_resampling
 from hygeia_tpu_torch.ops.site_graphs import SITES_PER_GRAPH, SiteLoop
 from hygeia_tpu_torch.single_group.model import SingleGroupModel, build_tables
@@ -69,9 +81,11 @@ from hygeia_tpu_torch.utils import spans
 _NEG_INF = float("-inf")
 _ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
 _CHECKPOINT_VERSION = 2  # of the .npz the chunked engine writes (2: adam_iter per unit)
-# State that a unit past its t_limit keeps as it was.
+# State that a unit past its t_limit keeps as it was; K4 leaves such a
+# unit's state alone, and of it only the ADAM step's can change.
 _FROZEN = ("d", "r", "w", "psi", "psi_time", "psi_valid", "spill", "phi", "theta", "grad_prev",
            "adam_m", "adam_v", "score", "adam_iter")
+_ADAM = ("theta", "grad_prev", "adam_m", "adam_v", "adam_iter")
 
 
 class EngineConfig(NamedTuple):
@@ -131,6 +145,9 @@ class _Engine:
             raise ValueError(f"n_particles_max={N} must exceed the {R} regimes")
         if emissions.dim() == 3 and emissions.shape[0] != U:
             raise ValueError(f"per-unit emissions {tuple(emissions.shape)} for {U} units")
+        # K4 (ops/cuda_engine_step.py) steps the sites at capacity on a CUDA
+        # card, or the engine is refused here.
+        self.k4 = k4.takes(dev, dtype, N, S, R, D)
         # (U, T, R); one shared table is a view of it.
         self.emissions = emissions.to(dtype).expand(U, T, R)
         self.regimes = torch.arange(R, device=dev)
@@ -214,6 +231,9 @@ class _Engine:
         self.true = torch.ones((), dtype=torch.bool, device=dev)
         self.log_P = self.P = self.haz = None
         self._set_tables(build_tables(model, theta))
+        # K4's stages hand each other a workspace made once.
+        self.k4_ws = k4.workspace(U, N, R, dev) if self.k4 else None
+        self.k4_stream = torch.cuda.Stream(dev) if self.k4 else None  # SMOOTH's, beside the estimate
 
     def _set_tables(self, tables):
         """Keep log P, P and a (U, n_haz, R * W) stack of the per-particle
@@ -247,6 +267,18 @@ class _Engine:
             return "update" if update else "steady"
         return "frozen update" if update else "frozen"
 
+    def takes_k4(self, t):
+        """Whether site t takes K4: a CUDA engine (``self.k4``), at a site
+        at capacity (the growth phase takes the plain composition)."""
+        return self.k4 and min(self.R * t, self.N) + self.R > self.N
+
+    def _final(self, t):
+        """Whether every pending smoothing entry finalises at site t: a bool
+        for all units, or with t_limit a (U,) mask (False where none)."""
+        if self.final_at is None:
+            return t == self.T - 1
+        return self.final_at.get(t, False)
+
     def _lookup(self, d_prev, r_prev):
         """(U, n_haz, N) table values at each particle's (sojourn, regime);
         sojourns clamp to the table depth, regimes to [0, R)."""
@@ -258,16 +290,72 @@ class _Engine:
         """Advance the state from site t - 1 to site t (1 <= t < T). The
         host's t picks the branches; the site's value comes from
         ``t_dev``, which holds t and is advanced at the end, so a step
-        captured at one site of a ``kind`` replays every site of it."""
+        captured at one site of a ``kind`` replays every site of it.
+        After the resampler, a site at capacity on the card takes K4
+        (``_step_k4``), any other site the plain composition
+        (``_step_plain``)."""
         st, cfg = self.state, self.config
-        U, R, N, M, S, D, T = self.U, self.R, self.N, self.M, self.S, self.D, self.T
+        U, t_dev = self.U, self.t_dev
+        use_k4 = self.takes_k4(t)
+        live = old = None
+        if t >= self.t_freeze:  # some unit is past its t_limit: keep its state
+            keep = _FROZEN
+            if use_k4:  # K4 leaves the unit alone; the ADAM step does not
+                keep = _ADAM if cfg.estimate_parameters and t % cfg.steps_per_update == 0 else ()
+            if keep:
+                live = self.live.index_select(0, t_dev)[0]
+                old = {k: st[k].clone() for k in keep}
+
+        # ---- resample (every site, f32, through the kernel on the card) ---
+        res = optimal_resampling(st["w"].to(torch.float32).contiguous(), self.M, u_sys, u_mult)
+        if use_k4:
+            updated = self._step_k4(t, res)
+        else:
+            updated = self._step_plain(t, res, live)
+        if old is not None:
+            for k, v in old.items():
+                keep = live.view(U, *([1] * (v.dim() - 1)))
+                st[k].copy_(torch.where(keep, st[k], v))
+        if updated:
+            self._set_tables(build_tables(self.model, st["theta"]))
+        st["trace"].index_copy_(1, t_dev, st["theta"][:, None])
+        t_dev.add_(1)
+        if cfg.progress_every and t % cfg.progress_every == 0:
+            print(f"single-group engine: step {t}", flush=True)
+
+    def _step_k4(self, t, res):
+        """K4's stages at a site at capacity on the card: WEIGHTS, then
+        SMOOTH when regimes are estimated and GRADIENT through
+        ``_estimate`` when parameters are. The two read what WEIGHTS wrote
+        and write apart, so SMOOTH runs on a second stream beside the
+        estimate (a fork and a join in a captured graph). Returns whether
+        the parameters were updated."""
+        cfg = self.config
+        launch = lambda stage, **kw: k4.engine_step_cuda(
+            stage, self.state, res, (self.haz, self.log_P, self.P), self.emissions, self.k4_ws, self.t_dev,
+            min_duration=self.model.u, epsilon=cfg.epsilon, regimes=cfg.estimate_regimes,
+            live=self.live if t >= self.t_freeze else None, **kw)
+        launch(k4.WEIGHTS)
+        main, side = torch.cuda.current_stream(self.device), self.k4_stream
+        if cfg.estimate_regimes:
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                launch(k4.SMOOTH, final=self._final(t))
+        updated = cfg.estimate_parameters and self._estimate(t, lambda: launch(k4.GRADIENT))
+        if cfg.estimate_regimes:
+            main.wait_stream(side)
+        return updated
+
+    def _step_plain(self, t, res, live):
+        """The site step after the resampler as a composition of PyTorch
+        operations: every site on the CPU, the growth phase on the card.
+        ``live``: None or the (U,) units not yet past their t_limit.
+        Returns whether the parameters were updated."""
+        st, cfg = self.state, self.config
+        U, R, N, M = self.U, self.R, self.N, self.M
         dtype, dev, model = self.dtype, self.device, self.model
         t_dev = self.t_dev
         d_prev, r_prev, w_prev = st["d"], st["r"], st["w"]
-        live = None
-        if t >= self.t_freeze:  # some unit is past its t_limit: keep its state
-            live = self.live.index_select(0, t_dev)[0]
-            old = {k: st[k].clone() for k in _FROZEN}
 
         # Deterministic particle-count schedule.
         n_prev = min(R * t, N)
@@ -275,8 +363,6 @@ class _Engine:
         at_capacity = n_prev + R > N
         n_dead = N - m_t - R
 
-        # ---- resample (every site, f32, through the kernel on the card) ---
-        res = optimal_resampling(w_prev.to(torch.float32).contiguous(), M, u_sys, u_mult)
         if at_capacity:
             top = res.top_m_indices.long()
             # The top-M fallback on a non-finite log_c keeps the M largest
@@ -329,29 +415,17 @@ class _Engine:
 
         # ---- adaptive-lag marginal smoothing --------------------------------
         if cfg.estimate_regimes:
-            if self.final_at is None:
-                final = t == T - 1
-            else:
-                final = self.final_at.get(t, False)
-            self._smooth(t, anc, b, r_new, w_self, m_t, live, final)
+            self._smooth(t, anc, b, r_new, w_self, m_t, live, self._final(t))
 
         # ---- online parameter estimation ------------------------------------
         updated = False
         if cfg.estimate_parameters:
-            updated = self._estimate(t, trio, trio_a, r_idx, r_a, anc, b, valid, w_self, m_t)
+            updated = self._estimate(
+                t, lambda: self._score(trio, trio_a, r_idx, r_a, anc, b, valid, w_self, m_t))
         st["d"].copy_(d_new)
         st["r"].copy_(r_new)
         st["w"].copy_(w_new)
-        if live is not None:
-            for k, v in old.items():
-                keep = live.view(U, *([1] * (v.dim() - 1)))
-                st[k].copy_(torch.where(keep, st[k], v))
-        if updated:
-            self._set_tables(build_tables(model, st["theta"]))
-        st["trace"].index_copy_(1, t_dev, st["theta"][:, None])
-        t_dev.add_(1)
-        if cfg.progress_every and t % cfg.progress_every == 0:
-            print(f"single-group engine: step {t}", flush=True)
+        return updated
 
     def _mix(self, stat, anc, b, m_t, axis):
         """The statistic at t - 1 carried to the slots at t along the particle
@@ -424,8 +498,41 @@ class _Engine:
         st["psi"].copy_(psi_new)
         psi_valid.copy_(psi_valid & ~fin)
 
-    def _estimate(self, t, trio, trio_a, r_idx, r_a, anc, b, valid, w_self, m_t):
-        st, cfg, model = self.state, self.config, self.model
+    def _estimate(self, t, phi_and_score):
+        """φ and the score at site t through ``phi_and_score`` (K4's
+        GRADIENT launch, or the plain ``_score``), then at a parameter
+        update (t a multiple of ``steps_per_update``) the ADAM step;
+        returns whether it took one."""
+        st, cfg = self.state, self.config
+        phi_and_score()
+        if t % cfg.steps_per_update != 0:
+            return False
+        score = st["score"]
+        gradient = score - st["grad_prev"]
+        it = st["adam_iter"]
+        it1 = (it.to(self.dtype) + 1.0)[:, None]  # (U, 1): each unit's own count
+        lr = cfg.learning_rate_factor / it1**cfg.learning_rate_exponent
+        if cfg.use_adam:
+            m2 = _ADAM_B1 * st["adam_m"] + (1 - _ADAM_B1) * gradient
+            v2 = _ADAM_B2 * st["adam_v"] + (1 - _ADAM_B2) * gradient * gradient
+            delta = (lr * m2 / (torch.sqrt(v2 / (1.0 - _ADAM_B2**it1)) + _ADAM_EPS)
+                     / (1.0 - _ADAM_B1**it1))
+            st["adam_m"].copy_(m2)
+            st["adam_v"].copy_(v2)
+        else:
+            g = gradient
+            if cfg.normalise_gradients:
+                g = g / torch.clamp(g.abs().sum(dim=-1, keepdim=True), min=1e-30)
+            delta = lr * g
+        st["theta"].copy_(st["theta"] + delta)
+        it.copy_(it + 1)
+        st["grad_prev"].copy_(score)
+        return True
+
+    def _score(self, trio, trio_a, r_idx, r_a, anc, b, valid, w_self, m_t):
+        """φ at site t (the mix of t - 1's plus the gradient term) and the
+        score, as a composition of PyTorch operations."""
+        st, model = self.state, self.model
         U, R, N, D = self.U, self.R, self.N, self.D
         om_col, ka_col = R * (R - 1), R * R
 
@@ -459,29 +566,6 @@ class _Engine:
         score = (w_self[:, None, :] @ phi)[:, 0]  # (U, D)
         st["phi"].copy_(phi)
         st["score"].copy_(score)
-
-        if t % cfg.steps_per_update != 0:
-            return False
-        gradient = score - st["grad_prev"]
-        it = st["adam_iter"]
-        it1 = (it.to(self.dtype) + 1.0)[:, None]  # (U, 1): each unit's own count
-        lr = cfg.learning_rate_factor / it1**cfg.learning_rate_exponent
-        if cfg.use_adam:
-            m2 = _ADAM_B1 * st["adam_m"] + (1 - _ADAM_B1) * gradient
-            v2 = _ADAM_B2 * st["adam_v"] + (1 - _ADAM_B2) * gradient * gradient
-            delta = (lr * m2 / (torch.sqrt(v2 / (1.0 - _ADAM_B2**it1)) + _ADAM_EPS)
-                     / (1.0 - _ADAM_B1**it1))
-            st["adam_m"].copy_(m2)
-            st["adam_v"].copy_(v2)
-        else:
-            g = gradient
-            if cfg.normalise_gradients:
-                g = g / torch.clamp(g.abs().sum(dim=-1, keepdim=True), min=1e-30)
-            delta = lr * g
-        st["theta"].copy_(st["theta"] + delta)
-        it.copy_(it + 1)
-        st["grad_prev"].copy_(score)
-        return True
 
     def result(self) -> EngineResult:
         st, T = self.state, self.T

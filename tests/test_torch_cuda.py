@@ -25,6 +25,11 @@ exponentials is taken in another order). K3 against its plain version
 from the same carry and uniforms: the draws equal; a row that differed
 would have to be a tie within float32 rounding of the plain version's
 largest noisy logits (its terms are the plain version's bit for bit).
+The engine-step kernel K4 against the plain composition from the same
+state: particles, insertion slots, finalisations and counts equal; every
+value within 2e-6 + 2e-5 s, s the size of what it is summed from: its own
+|value|, or a row of psi's or a column of phi's largest over the
+particles (f32 sums taken in another order).
 """
 
 import numpy as np
@@ -597,6 +602,223 @@ def test_single_group_engine_on_the_card_goes_through_the_kernel(device):
     assert bool(torch.isfinite(res.theta_trace).all())
     assert bool(res.regime_valid.all())
     torch.testing.assert_close(res.regime_probs.sum(-1), torch.ones((2, T), device=device), atol=1e-4, rtol=0)
+
+
+def _k4_engine(device, case, T=600, units=None):
+    """An _Engine on the card at the θ cell's widths (N = 250, S = 128, R =
+    6, u = 3), updates every 200 sites, for a K4 case: "cell" (U = 1, one
+    shared table, both estimates), "u4_per_unit" (U = 4, a table a unit),
+    "no_regimes", "kappa_free" (D = 42), "frozen", "frozen_update" and
+    "t_limit_ends" (U = 4 with t_limit (T, 300, T, 200)), "update", "last"
+    and "chunked"."""
+    from hygeia_tpu_torch.ops.emissions import emission_log_prob_table
+    from hygeia_tpu_torch.single_group.engine import EngineConfig, _Engine
+    from hygeia_tpu_torch.single_group.model import make_model, parameters_to_theta
+
+    R = 6
+    U = units or (4 if case in ("u4_per_unit", "frozen", "frozen_update", "t_limit_ends") else 1)
+    kappa_fixed = case != "kappa_free"
+    model = make_model([0.95, 0.05, 0.8, 0.2, 0.5, 0.5], [0.05, 0.05, 0.1, 0.1, 0.1, 0.2886751], 3,
+                       np.full(R, 2.0), device=device, kappa_fixed=kappa_fixed)
+    p = np.full((R, R), 1.0 / (R - 1))
+    np.fill_diagonal(p, 0.0)
+    theta = parameters_to_theta(p, [0.995, 0.975, 0.95, 0.925, 0.9, 0.9], np.full(R, 2.0), kappa_fixed)
+    rng = np.random.default_rng(U * 7 + len(case))
+    tables = []
+    for _ in range(U if U > 1 else 1):
+        n = rng.poisson(20, size=(T, 2))
+        y = rng.binomial(n, np.repeat(rng.uniform(0, 1, T // 50), 50)[:, None])
+        tables.append(emission_log_prob_table(y, n, model.alpha, model.beta))
+    E = torch.stack(tables) if U > 1 else tables[0]
+    cfg = EngineConfig(estimate_regimes=case != "no_regimes", estimate_parameters=True, steps_per_update=200)
+    t_limit = [T, 300, T, 200] if case in ("frozen", "frozen_update", "t_limit_ends") else None
+    return _Engine(model, theta, E, cfg, U, torch.float32, t_limit=t_limit)
+
+
+def _k4_snapshot(eng):
+    """Copies of every tensor the site step reads or writes."""
+    snap = {k: v.clone() for k, v in eng.state.items() if torch.is_tensor(v)}
+    snap.update(haz=eng.haz.clone(), log_P=eng.log_P.clone(), P=eng.P.clone(), t_dev=eng.t_dev.clone())
+    return snap
+
+
+def _k4_restore(eng, snap):
+    for k, v in snap.items():
+        (eng.state[k] if k in eng.state else getattr(eng, k)).copy_(v)
+
+
+def _k4_gap(a, b, scale=None):
+    """(max |a - b|, the largest |a - b| / (2e-6 + 2e-5 s)) where both are
+    finite, s being |b| element by element or ``scale`` (broadcast to b):
+    the size of the values an element is summed from. The non-finite
+    entries must be equal (NaN to NaN). Within tolerance where the second
+    is at most 1."""
+    a, b = a.double(), b.double()
+    fa, fb = torch.isfinite(a), torch.isfinite(b)
+    assert torch.equal(fa, fb) and torch.equal(a[~fa].nan_to_num(0.0), b[~fb].nan_to_num(0.0))
+    if not bool(fa.any()):
+        return 0.0, 0.0
+    s = b.abs() if scale is None else scale.double().abs().expand_as(b)
+    err = (a - b).abs()[fa]
+    return float(err.max()), float((err / (2e-6 + 2e-5 * s[fa])).max())
+
+
+def _k4_gaps(got, want, t0, T):
+    """_k4_gap of every value of the site step (snapshots of the K4 and
+    the plain route), each against the size it is summed from: psi by its
+    regime rows, phi by its columns, the score and the ADAM moments by
+    phi's columns, θ and the tables by their rows. Site t0 of T; the
+    trace's rows past t0 are not written yet, out's sentinel row T is
+    never read."""
+    row = lambda x: x.abs().amax(-1, keepdim=True)
+    phi_col = want["phi"].abs().amax(1)  # (U, D)
+    scales = {"psi": row(want["psi"]), "phi": want["phi"].abs().amax(1, keepdim=True), "score": phi_col,
+              "grad_prev": phi_col, "adam_m": phi_col, "adam_v": phi_col**2, "theta": row(want["theta"]),
+              "haz": row(want["haz"])}
+    gaps = {k: _k4_gap(got[k], want[k], scales.get(k))
+            for k in ("w", "shifts", "psi", "phi", "score", "theta", "grad_prev", "adam_m", "adam_v", "haz",
+                      "log_P", "P")}
+    trace = (got["trace"][:, :t0 + 1], want["trace"][:, :t0 + 1])
+    gaps["trace"] = _k4_gap(*trace, row(trace[1]))
+    gaps["out"] = _k4_gap(got["out"][:, :T], want["out"][:, :T])
+    return gaps
+
+
+@pytest.mark.parametrize("case", ["cell", "u4_per_unit", "no_regimes", "kappa_free", "frozen", "frozen_update",
+                                  "t_limit_ends", "update", "last", "chunked"])
+def test_k4_matches_the_plain_composition(device, case, tmp_path):
+    """One site through K4 against the plain composition (_step_plain) on
+    the card from the same state and the same uniforms, after a run of K4
+    sites: the particles, ancestors, insertion slots, finalisations and
+    counts equal; the weights, shifts, psi, phi, the score, θ, the ADAM
+    moments, the tables and the finalised rows within 2e-6 + 2e-5 s
+    (``_k4_gaps``: f32 sums of N = 250 terms taken in another order than
+    torch.logsumexp's and cuBLAS's); K4 launches once a stage. Cases: the θ cell's shape; U = 4 with a table a unit; the
+    regime pass off; κ estimated (D = 42); units past their t_limit, at a
+    steady and an update site (their ADAM state kept); the site where two
+    units' t_limit ends (their entries all finalise); an update site (ADAM
+    and the rebuilt tables after K4's GRADIENT); the last site; and an
+    engine resumed from a chunked run's checkpoint."""
+    from hygeia_tpu_torch.ops import cuda_engine_step as k4
+    from hygeia_tpu_torch.single_group.engine import _site_uniforms
+
+    T = 600
+    t0 = {"frozen": 350, "frozen_update": 400, "t_limit_ends": 299, "update": 400, "last": T - 1}.get(case, 321)
+    eng = _k4_engine(device, case, T)
+    assert eng.k4 and eng.takes_k4(t0) and not eng.takes_k4(40) and eng.takes_k4(41)
+    g = torch.Generator(device=device).manual_seed(11)
+    for t in range(1, t0):
+        eng.step(t, *_site_uniforms(eng.U, eng.M, g, device))
+    if case == "chunked":
+        path = tmp_path / "ck.npz"
+        eng.state["next_t"] = t0
+        eng.save(path)
+        eng = _k4_engine(device, case, T)
+        with np.load(path, allow_pickle=False) as ck:
+            eng.load(ck)
+        assert eng.t_dev.tolist() == [t0]
+    draws = _site_uniforms(eng.U, eng.M, g, device)
+    snap = _k4_snapshot(eng)
+    launches = k4.KERNEL.launches
+    eng.step(t0, *draws)
+    stages = 2 if case == "no_regimes" else 3  # WEIGHTS, SMOOTH with the regime pass, GRADIENT
+    assert k4.KERNEL.launches == launches + stages
+    got = _k4_snapshot(eng)
+    _k4_restore(eng, snap)
+    eng.k4 = False
+    eng.step(t0, *draws)
+    want = _k4_snapshot(eng)
+    assert k4.KERNEL.launches == launches + stages
+    for k in ("d", "r", "psi_time", "psi_valid", "spill", "adam_iter", "t_dev"):
+        assert torch.equal(got[k], want[k]), k
+    assert torch.equal(got["out_valid"][:, :T], want["out_valid"][:, :T])
+    gaps = _k4_gaps(got, want, t0, T)
+    print(f"K4 vs plain, {case} at t={t0}: max abs err " + ", ".join(f"{k} {v[0]:.2e}" for k, v in gaps.items())
+          + "; of tolerance " + ", ".join(f"{k} {v[1]:.2f}" for k, v in gaps.items()))
+    assert max(v[1] for v in gaps.values()) <= 1, gaps
+
+
+def test_k4_refuses_what_it_cannot_take(device):
+    """A CUDA engine with f64 weights or wider than K4's bounds is refused
+    when it is made, naming the bound (nothing on the card falls back to
+    the plain composition); a CPU engine takes the plain composition; a
+    launch with a tensor of another dtype or shape raises before it is
+    made, naming the tensor."""
+    from hygeia_tpu_torch.ops import cuda_engine_step as k4
+    from hygeia_tpu_torch.ops.cuda_resampling import optimal_resampling
+    from hygeia_tpu_torch.single_group.engine import EngineConfig, _Engine, _site_uniforms
+    from hygeia_tpu_torch.single_group.model import make_model
+
+    eng = _k4_engine(device, "cell", T=100)
+    assert eng.k4
+    model = make_model([0.95, 0.05, 0.8, 0.2, 0.5, 0.5], [0.05, 0.05, 0.1, 0.1, 0.1, 0.2886751], 3,
+                       np.full(6, 2.0), device=device)
+    with pytest.raises(TypeError, match="float32 weights, got torch.float64"):
+        _Engine(model, eng.state["theta"][0].double(), eng.emissions[0].double(), eng.config, 1, torch.float64)
+    with pytest.raises(ValueError, match="shared memory"):
+        _Engine(model, eng.state["theta"][0], eng.emissions[0], EngineConfig(n_particles_max=3300), 1,
+                torch.float32)
+    assert not _k4_engine(torch.device("cpu"), "cell", T=100).k4
+    res = optimal_resampling(eng.state["w"], eng.M, *_site_uniforms(1, eng.M, torch.Generator(device=device), device))
+
+    def launch(**change):
+        state = {**eng.state, **change}
+        k4.engine_step_cuda(k4.WEIGHTS, state, res, (eng.haz, eng.log_P, eng.P), eng.emissions, eng.k4_ws,
+                            eng.t_dev, min_duration=3, epsilon=0.01)
+
+    before = k4.KERNEL.launches
+    with pytest.raises(TypeError, match=r"state\['w'\] has dtype"):
+        launch(w=eng.state["w"].double())
+    with pytest.raises(TypeError, match=r"state\['d'\] has dtype"):
+        launch(d=eng.state["d"].int())
+    with pytest.raises(ValueError, match=r"state\['psi'\] has shape"):
+        launch(psi=eng.state["psi"][:, :, :5])
+    with pytest.raises(ValueError, match=r"state\['phi'\] must be contiguous"):
+        launch(phi=eng.state["phi"].transpose(1, 2).contiguous().transpose(1, 2))
+    assert k4.KERNEL.launches == before
+
+
+def test_k4_engine_graphed_equals_eager_and_counts_its_sites(device):
+    """The θ cell's engine (U = 1, N = 250, both estimates, updates every
+    200 sites) over 1,000 sites on the card: replayed as graphs of 8 sites
+    (update sites one-site graphs) it equals the eager run bit for bit;
+    K4 launches three times a site at capacity on either route (WEIGHTS,
+    SMOOTH and GRADIENT at T - 1 - 40 sites: the 40 growth sites take the
+    plain composition) and K1 once a site; a replayed steady site runs at
+    most 10 graph nodes."""
+    from hygeia_tpu_torch.ops import cuda_engine_step as k4
+    from hygeia_tpu_torch.single_group.engine import _run_sites, _site_draws
+    from hygeia_tpu_torch.ops.site_graphs import SiteLoop
+    from hygeia_tpu_torch.utils import spans
+
+    T = 1000
+    out = {}
+    for K in (0, 8):
+        eng = _k4_engine(device, "cell", T)
+        g = torch.Generator(device=device).manual_seed(5)
+        capacity = sum(eng.takes_k4(t) for t in range(1, T))
+        assert capacity == T - 1 - 40
+        before, k1_before = k4.KERNEL.launches, cr.KERNEL.launches
+        spans.enable()
+        try:
+            with SiteLoop(device, K, g) as loop:
+                _run_sites(eng, loop, 1, T, _site_draws(eng, None, None, g))
+            torch.cuda.synchronize(device)
+        finally:
+            recorded, _ = spans.drain()
+            spans.disable()
+        assert k4.KERNEL.launches - before == 3 * capacity
+        assert cr.KERNEL.launches - k1_before == T - 1
+        out[K] = {k: v.clone() for k, v in eng.state.items() if torch.is_tensor(v)}
+        if K:
+            steady = [s for s in recorded if s.name == "site_loop.capture" and s.attrs.get("kind") == "steady"
+                      and s.attrs.get("sites") == K]
+            assert steady, "no steady graph of 8 sites was captured"
+            per_site = steady[0].attrs["nodes"] / K
+            print(f"K4: {per_site:.1f} nodes a replayed steady site")
+            assert per_site <= 10
+    for k in out[0]:
+        assert torch.equal(out[0][k], out[8][k]), k
 
 
 def test_xla_f32_functions_bit_identical_to_the_cpu(device):

@@ -1,5 +1,5 @@
 """The hand kernels' shared loader and launch registry (ops/build.py) on
-the CPU: K1, K2 and K3 join the registry once each, in that order,
+the CPU: K1, K2, K3 and K4 join the registry once each, in that order,
 whatever module is imported first; the site loops count through that
 registry; no wrapper reaches into another's private names; and a failed
 launch or a struct that differs from its kernel's raises with the
@@ -16,13 +16,14 @@ import pytest
 
 from hygeia_tpu_torch.ops import build, probe, site_graphs
 from hygeia_tpu_torch.ops import cuda_backward_step as k3
+from hygeia_tpu_torch.ops import cuda_engine_step as k4
 from hygeia_tpu_torch.ops import cuda_filter_step as k2
 from hygeia_tpu_torch.ops import cuda_resampling as k1
 
 REPO = Path(__file__).resolve().parent.parent
 OPS = REPO / "hygeia_tpu_torch" / "ops"
 WRAPPERS = [(k1.KERNEL, "optimal_resampling"), (k2.KERNEL, "filter_step"), (k3.KERNEL, "backward_step"),
-            (probe.PROBE, "probe")]
+            (probe.PROBE, "probe"), (k4.KERNEL, "engine_step")]
 
 
 def test_the_three_kernels_join_the_registry_once_in_order():
@@ -30,6 +31,17 @@ def test_the_three_kernels_join_the_registry_once_in_order():
     assert ours == [k1.KERNEL, k2.KERNEL, k3.KERNEL]
     assert probe.PROBE not in build.KERNELS
     assert site_graphs.KERNELS is build.KERNELS
+
+
+@pytest.mark.parametrize("first", ["cuda_engine_step", "cuda_backward_step", "site_graphs"])
+def test_k4_joins_the_registry_after_k3_whatever_is_imported_first(first):
+    code = (f"import hygeia_tpu_torch.ops.{first}\n"
+            "from hygeia_tpu_torch.single_group import runner\n"
+            "from hygeia_tpu_torch.ops import build\n"
+            "print([k.name for k in build.KERNELS])")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, check=True,
+                         timeout=300).stdout
+    assert out.strip() == "['optimal_resampling', 'filter_step', 'backward_step', 'engine_step']"
 
 
 @pytest.mark.parametrize("first", ["cuda_backward_step", "cuda_filter_step", "site_graphs"])
@@ -83,7 +95,8 @@ def test_a_failed_launch_raises_with_the_kernel_name_and_code(monkeypatch, kerne
         kernel.failed(700)
 
 
-@pytest.mark.parametrize("module, struct", [(k2, "FilterStepArgs"), (k3, "BackwardStepArgs")])
+@pytest.mark.parametrize("module, struct", [(k2, "FilterStepArgs"), (k3, "BackwardStepArgs"),
+                                            (k4, "EngineStepArgs")])
 def test_a_struct_of_another_size_than_the_kernels_is_refused(monkeypatch, module, struct):
     kernel, name = module.KERNEL, module.KERNEL.name
     for attr in ("lib", "build", "launch"):
